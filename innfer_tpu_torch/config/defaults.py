@@ -1,7 +1,7 @@
 """Network-config normalizer: alias resolution + RRDB hyperparameter defaults.
 
 The port's own copy of ``innfer_tpu/config/defaults.py`` for the families
-this port runs so far (RRDBNet and mESRGAN); the reference is
+this port runs so far (RRDBNet, mESRGAN, CycleGAN ResNet); the reference is
 ``get_network_G_config`` (utils/defaults.py:3-148).  The other families'
 aliases resolve so the model registry can name them in its error.
 """
@@ -75,8 +75,23 @@ def get_network_config(network: Union[str, Dict[str, Any]], scale: int) -> Dict[
             nb=pop("nb", 24),
             gc=pop("gc", 32),
         )
+    elif canon == "resnet_net":
+        if kind in ("resnet_6blocks", "resnet_6", "cg_6"):
+            default_blocks = 6
+        else:  # resnet_9blocks/resnet_9/cg9 and any other alias
+            default_blocks = 9
+        cfg.update(
+            input_nc=pop("in_nc", 3),
+            output_nc=pop("out_nc", 3),
+            n_blocks=pop("n_blocks", default_blocks),
+            ngf=pop("ngf", 64),
+            norm_type=pop("norm_type", "instance"),
+            use_dropout=pop("use_dropout", False),
+            upsample_mode=pop("upsample_mode", "deconv"),
+            padding_type=pop("padding_type", "reflect"),
+        )
 
-    # extension keys the model factories read from cfg (rrdb outm and backend)
+    # extension keys the model factories read from cfg (outm and backend)
     for extra in ("outm", "backend"):
         if extra in opts:
             cfg[extra] = opts.pop(extra)

@@ -25,6 +25,7 @@ def load_model(
     param_dtype: torch.dtype = torch.float32,
     device: DeviceLike = None,
     backend: Optional[str] = None,
+    strict: bool = True,
 ) -> Tuple[ModelDef, Params]:
     """Load a checkpoint and build the matching model, params on ``device``
     (the CUDA device unless ``device="cpu"``).
@@ -32,7 +33,9 @@ def load_model(
     ``arch='infer'`` auto-detects the architecture from state-dict key
     fingerprints and recovers nb/nf/scale from shapes; otherwise ``arch``
     is a type alias resolved with library defaults.  ``backend`` selects
-    the RDB backend (auto | kernel | torch, models/rrdb.py).
+    the kernel backend (auto | kernel | torch, models/rrdb.py and
+    models/resnet.py).  ``strict=False`` drops the keys the model lists in
+    ``ignore_key_patterns`` (the cyclegan preset's non-strict load).
     """
     dev = resolve_device(device)
     state = swa_to_normal(load_checkpoint(path))
@@ -42,7 +45,8 @@ def load_model(
         cfg = get_network_config({"type": arch}, scale if scale else 1)
     if backend is not None:
         cfg["backend"] = backend
-    return load_model_from_state(state, cfg, param_dtype=param_dtype, device=dev)
+    return load_model_from_state(state, cfg, param_dtype=param_dtype, device=dev,
+                                 strict=strict)
 
 
 def load_model_from_state(
@@ -51,9 +55,11 @@ def load_model_from_state(
     *,
     param_dtype: torch.dtype = torch.float32,
     device: DeviceLike = None,
+    strict: bool = True,
 ) -> Tuple[ModelDef, Params]:
     """Build from an already-loaded state dict + full config."""
     dev = resolve_device(device)
     model = get_network(cfg)
-    params = convert_state(model, state, param_dtype=param_dtype, device=dev)
+    params = convert_state(model, state, param_dtype=param_dtype, device=dev,
+                           strict=strict)
     return model, params

@@ -1,7 +1,7 @@
 """Architecture factory: full config dict -> ModelDef.
 
 The port's registry over the reference's types (architectures/__init__.py:
-5-40).  RRDBNet and mESRGAN run; the other families raise
+5-40).  RRDBNet, mESRGAN and the CycleGAN ResNet run; the other families raise
 ``NotImplementedError`` naming the slice of the port that brings them.
 """
 from __future__ import annotations
@@ -17,7 +17,6 @@ _LATER = {
     "sr_resnet": "A9 (SRResNet)",
     "pan_net": "A10 (PAN)",
     "ppon": "A11 (PPON)",
-    "resnet_net": "A12 (CycleGAN)",
     "unet_net": "A13 (pix2pix UNet)",
     "wbcunet_net": "A14 (WBC)",
 }
@@ -35,6 +34,10 @@ def get_network(cfg: Dict[str, Any]) -> ModelDef:
         from innfer_tpu_torch.models import rrdb
 
         return rrdb.build_mrrdb(cfg)
+    if kind == "resnet_net":
+        from innfer_tpu_torch.models import resnet
+
+        return resnet.build(cfg)
     if kind in _LATER:
         raise NotImplementedError(
             f"Model [{kind}] is not ported to innfer_tpu_torch yet "

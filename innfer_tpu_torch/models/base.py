@@ -9,8 +9,9 @@ and the port's kernel takes any tile.
 """
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +58,16 @@ class ModelDef:
     apply_trunk: Optional[Callable[[Params, torch.Tensor], torch.Tensor]] = None
     apply_tail: Optional[Callable[[Params, torch.Tensor], torch.Tensor]] = None
     tail_halo: int = 0
+    # regex patterns (fullmatch) of keys dropped under non-strict loading
+    # (pre-0.4 InstanceNorm running stats in CycleGAN checkpoints)
+    ignore_key_patterns: Tuple[str, ...] = ()
+    # regex patterns of ConvTranspose2d weights.  The port keeps their
+    # checkpoint layout; only params_from_jax needs to know them.
+    transposed_keys: Tuple[str, ...] = ()
+
+
+def _matches(patterns: Sequence[str], key: str) -> bool:
+    return any(re.fullmatch(p, key) for p in patterns)
 
 
 def _as_tensor(val) -> torch.Tensor:
@@ -70,14 +81,18 @@ def _as_tensor(val) -> torch.Tensor:
 
 def convert_state(model: ModelDef, state: Mapping[str, Any], *,
                   param_dtype: torch.dtype = torch.float32,
-                  device: Optional[torch.device] = None) -> ParamDict:
+                  device: Optional[torch.device] = None,
+                  strict: bool = True) -> ParamDict:
     """A torch state dict -> this model's params on ``device``.  >=2-D
     tensors take ``param_dtype``; biases and other <=1-D tensors stay fp32
-    for numerical fidelity."""
+    for numerical fidelity.  ``strict=False`` drops the keys matching the
+    model's ``ignore_key_patterns`` (reference run.py:305-309)."""
     if model.remap is not None:
         state = model.remap(state)
     params = ParamDict()
     for key, val in state.items():
+        if not strict and _matches(model.ignore_key_patterns, key):
+            continue
         t = _as_tensor(val)
         dt = torch.float32 if t.dim() <= 1 else param_dtype
         params[key] = t.to(device=device, dtype=dt).contiguous()
@@ -90,15 +105,22 @@ def cast_params(params: Mapping[str, torch.Tensor], dtype: torch.dtype) -> Param
         (k, v if v.dim() <= 1 else v.to(dtype)) for k, v in params.items())
 
 
-def params_from_jax(params_np: Mapping[str, Any], *,
-                    device: Optional[torch.device] = None) -> ParamDict:
+def params_from_jax(params_np: Mapping[str, Any], model: Optional[ModelDef] = None,
+                    *, device: Optional[torch.device] = None) -> ParamDict:
     """Carry the JAX package's parameters (numpy arrays, conv weights HWIO,
     ``innfer_tpu/models/base.py:117-121``) across into port params (OIHW),
-    so both packages compute the same function in the tests."""
+    so both packages compute the same function in the tests.
+
+    The JAX package stores a ConvTranspose2d weight spatially flipped as
+    (kh, kw, I, O); the keys matching ``model.transposed_keys`` go back to
+    the checkpoint's (I, O, kh, kw), unflipped."""
+    transposed = model.transposed_keys if model is not None else ()
     params = ParamDict()
     for key, val in params_np.items():
         t = _as_tensor(val)
-        if t.dim() == 4:
+        if t.dim() == 4 and _matches(transposed, key):
+            t = t.permute(2, 3, 0, 1).flip(2, 3)  # flipped (kh,kw,I,O) -> IOHW
+        elif t.dim() == 4:
             t = t.permute(3, 2, 0, 1)  # HWIO -> OIHW
         params[key] = t.to(device=device).contiguous()
     return params

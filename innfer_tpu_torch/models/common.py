@@ -59,6 +59,18 @@ def apply_upsample_block(params: Params, x: torch.Tensor, key: str, *,
     return F.act(act_type, x)
 
 
+def warn_train_dropout(arch: str) -> None:
+    """Loud note that deterministic inference diverges from the reference's
+    stochastic train-mode dropout (block.py Dropout(0.5))."""
+    import warnings
+
+    warnings.warn(
+        f"{arch} generator with use_dropout=True in train mode: the "
+        "reference samples Dropout(0.5) stochastically; this framework "
+        "is deterministic and treats dropout as identity, so outputs "
+        "will differ from the reference's random draws")
+
+
 def conv_block_layout(mode: str = "CNA", norm_type=None, act_type=None) -> List[str]:
     """Positional submodule kinds of a reference ``conv_block`` with zero
     padding (block.py:213-254): CNA/CNAC order [conv, norm?, act?], NAC

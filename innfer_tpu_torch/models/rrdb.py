@@ -13,12 +13,20 @@ Backends for the RDB (``cfg["backend"]``):
   * ``torch``: the plain gather form, one cuDNN conv per dense step.
   * ``auto`` (default): ``kernel`` for every CUDA tensor in the
     configuration the kernel covers, else ``torch``.
+With ``INNFER_RDB_CHAIN=1`` in the environment (read at each trunk call,
+default off, as in the JAX package) the ``kernel``/``auto`` trunk runs as
+one ``fused_rrdb_trunk``: nb*nr chain-mode RDB launches on persistent
+workspaces, each RRDB's residual fused into its last RDB.
+
+Both residuals multiply by 0.2 in the activation dtype (``res_scale``), as
+the JAX package's ``jnp.asarray(0.2, x.dtype)`` does.
 Norm layers, prelu/swish, Conv3D (evsrgan) and the ``scatter`` backend
 come with later slices of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import os
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -27,7 +35,8 @@ from innfer_tpu_torch.models import common as C
 from innfer_tpu_torch.models.base import ModelDef
 from innfer_tpu_torch.models.common import _outm
 from innfer_tpu_torch.nn import functional as F
-from innfer_tpu_torch.ops.rdb import fused_rdb, pack_rdb
+from innfer_tpu_torch.ops.rdb import (PackedRDB, fused_rdb, fused_rrdb_trunk,
+                                      pack_rdb, res_scale)
 
 _BACKENDS = ("auto", "kernel", "torch")
 _PLAIN_ACTS = ("relu", "leakyrelu", "lrelu", "tanh", "sigmoid")
@@ -50,35 +59,49 @@ def _rdb5c(params, x: torch.Tensor, prefix: str, *, act_type: str,
     if plus:
         x4 = x4 + x2
     x5 = conv(5, cat(x, x1, x2, x3, x4))
-    return x5 * 0.2 + x
+    return x5 * res_scale(x.dtype) + x
+
+
+def _rdb_params(params, prefix: str, plus: bool):
+    weights = [params[f"{prefix}.conv{c}.0.weight"] for c in range(1, 6)]
+    biases = [params[f"{prefix}.conv{c}.0.bias"] for c in range(1, 6)]
+    w1 = params[f"{prefix}.conv1x1.weight"] if plus else None
+    return weights, biases, w1
+
+
+def _packed(params, prefix: str, x: torch.Tensor, plus: bool) -> Optional[PackedRDB]:
+    """The kernel layout of one RDB's weights, cached on the ParamDict per
+    dtype and device (None for a CPU tensor or a plain dict)."""
+    cache = getattr(params, "cache", None)
+    if cache is None or not x.is_cuda:
+        return None
+    key = ("rdb", prefix, x.dtype, x.device)
+    if key not in cache:
+        cache[key] = pack_rdb(*_rdb_params(params, prefix, plus), x.dtype)
+    return cache[key]
 
 
 def _rdb5c_kernel(params, x: torch.Tensor, prefix: str, *,
                   plus: bool) -> torch.Tensor:
     """The fused RDB; its packed weights are cached on the ParamDict."""
-    weights = [params[f"{prefix}.conv{c}.0.weight"] for c in range(1, 6)]
-    biases = [params[f"{prefix}.conv{c}.0.bias"] for c in range(1, 6)]
-    w1 = params[f"{prefix}.conv1x1.weight"] if plus else None
-    packed = None
-    cache = getattr(params, "cache", None)
-    if cache is not None and x.is_cuda:
-        key = ("rdb", prefix, x.dtype, x.device)
-        packed = cache.get(key)
-        if packed is None:
-            packed = cache[key] = pack_rdb(weights, biases, w1, x.dtype)
+    weights, biases, w1 = _rdb_params(params, prefix, plus)
     return fused_rdb(x.contiguous(), weights, biases, plus=plus,
-                     conv1x1_w=w1, packed=packed)
+                     conv1x1_w=w1, packed=_packed(params, prefix, x, plus))
 
 
 def _kernel_config_ok(act_type: str, norm_type) -> bool:
     return act_type in ("leakyrelu", "lrelu") and norm_type in (None, "none")
 
 
+def _rdb_names(nr: int):
+    # nr != 3 checkpoints name their RDBs 'RDBs.{i}' (reference RRDB)
+    return (("RDB1", "RDB2", "RDB3") if nr == 3
+            else tuple(f"RDBs.{i}" for i in range(nr)))
+
+
 def _rrdb(params, x: torch.Tensor, prefix: str, *, nr: int, act_type: str,
           plus: bool, backend: str = "auto") -> torch.Tensor:
-    # nr != 3 checkpoints name their RDBs 'RDBs.{i}' (reference RRDB)
-    names = (("RDB1", "RDB2", "RDB3") if nr == 3
-             else tuple(f"RDBs.{i}" for i in range(nr)))
+    names = _rdb_names(nr)
     biased = f"{prefix}.{names[0]}.conv1.0.bias" in params
     if backend == "kernel":
         if not (_kernel_config_ok(act_type, None) and biased):
@@ -97,7 +120,37 @@ def _rrdb(params, x: torch.Tensor, prefix: str, *, nr: int, act_type: str,
         else:
             out = _rdb5c(params, out, f"{prefix}.{name}", act_type=act_type,
                          plus=plus)
-    return out * 0.2 + x
+    return out * res_scale(x.dtype) + x
+
+
+def _use_chain(params, x: torch.Tensor, *, nr: int, act_type: str,
+               backend: str) -> bool:
+    """The chain gate of innfer_tpu/models/rrdb.py:270-276: opted in with
+    INNFER_RDB_CHAIN=1, a kernel backend, biased convs, the kernel's
+    configuration, and a CUDA tensor (or backend='kernel', whose CPU path
+    runs the same chain over the plain versions)."""
+    return (os.environ.get("INNFER_RDB_CHAIN", "0") == "1"
+            and backend in ("auto", "kernel")
+            and f"model.1.sub.0.{_rdb_names(nr)[0]}.conv1.0.bias" in params
+            and _kernel_config_ok(act_type, None)
+            and (x.is_cuda or backend == "kernel"))
+
+
+def _trunk_chain(params, x: torch.Tensor, *, nb: int, nr: int,
+                 plus: bool) -> torch.Tensor:
+    """nb RRDBs as one fused_rrdb_trunk, its weights collected by the keys
+    of innfer_tpu/models/rrdb.py:280-289."""
+    prefixes = [[f"model.1.sub.{i}.{n}" for n in _rdb_names(nr)] for i in range(nb)]
+    per_rdb = [[_rdb_params(params, p, plus) for p in row] for row in prefixes]
+    weights = [[wb[0] for wb in row] for row in per_rdb]
+    biases = [[wb[1] for wb in row] for row in per_rdb]
+    w1s = [[wb[2] for wb in row] for row in per_rdb] if plus else None
+    packed = None
+    if x.is_cuda:
+        packed = [[_packed(params, p, x, plus) for p in row] for row in prefixes]
+    return fused_rrdb_trunk(x.contiguous(), weights, biases, nb=nb, nr=nr,
+                            gc=weights[0][0][0].shape[0], plus=plus,
+                            conv1x1_ws=w1s, packed=packed)
 
 
 def build(cfg: Dict[str, Any]) -> ModelDef:
@@ -141,9 +194,12 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
         hybrid engine can run it untiled on the full image."""
         fea = C.conv3x3(params, x, "model.0")
         t = fea
-        for i in range(nb):
-            t = _rrdb(params, t, f"model.1.sub.{i}", nr=nr, act_type=act_type,
-                      plus=plus, backend=backend)
+        if _use_chain(params, t, nr=nr, act_type=act_type, backend=backend):
+            t = _trunk_chain(params, t, nb=nb, nr=nr, plus=plus)
+        else:
+            for i in range(nb):
+                t = _rrdb(params, t, f"model.1.sub.{i}", nr=nr, act_type=act_type,
+                          plus=plus, backend=backend)
         # LR_conv, flattened into the trunk sequential at positional base nb
         t = C.apply_conv_block(params, t, lambda j: f"model.1.sub.{nb + j}",
                                mode=conv_mode, act_type=None)

@@ -2,7 +2,7 @@
 NHWC layout.
 
 The port's counterpart of ``innfer_tpu/nn/functional.py`` for the ops the
-ESRGAN path needs.  Activations are NHWC tensors, as the JAX package's
+ESRGAN and CycleGAN paths need.  Activations are NHWC tensors, as the JAX package's
 public functions take them; conv weights stay OIHW, as in the checkpoint.
 A contiguous NHWC tensor viewed with ``permute(0, 3, 1, 2)`` is a
 channels-last NCHW tensor, so cuDNN runs on it without a copy.
@@ -47,7 +47,7 @@ def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-           *, padding: int = 0) -> torch.Tensor:
+           *, stride: int = 1, padding: int = 0) -> torch.Tensor:
     """2D convolution, NHWC x OIHW -> NHWC.  Matches torch.nn.Conv2d.
 
     Weights and bias are cast to the activation dtype (bf16 activations run
@@ -56,12 +56,83 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     """
     bias = None if b is None else b.to(x.dtype)
     with true_fp32(x.dtype):
-        out = TF.conv2d(nhwc_to_nchw(x), w.to(x.dtype), bias, padding=padding)
+        out = TF.conv2d(nhwc_to_nchw(x), w.to(x.dtype), bias, stride=stride,
+                        padding=padding)
     return nchw_to_nhwc(out)
 
 
+def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
+                     b: Optional[torch.Tensor] = None, *, stride: int = 2,
+                     padding: int = 1, output_padding: int = 0) -> torch.Tensor:
+    """Transposed convolution, NHWC -> NHWC, matching torch.nn.ConvTranspose2d.
+    ``w`` keeps the checkpoint's (I, O, kh, kw) layout, so no flip is needed:
+    out = (in - 1) * stride - 2 * padding + kh + output_padding."""
+    bias = None if b is None else b.to(x.dtype)
+    with true_fp32(x.dtype):
+        out = TF.conv_transpose2d(nhwc_to_nchw(x), w.to(x.dtype), bias, stride=stride,
+                                  padding=padding, output_padding=output_padding)
+    return nchw_to_nhwc(out)
+
+
+def pad2d(x: torch.Tensor, pad: int, mode: str = "zero") -> torch.Tensor:
+    """Spatial padding of an NHWC tensor on all four sides: 'zero' |
+    'reflect' | 'replicate' (nn.ZeroPad2d / ReflectionPad2d /
+    ReplicationPad2d)."""
+    if mode not in ("zero", "reflect", "replicate"):
+        raise NotImplementedError(f"padding mode [{mode}] is not implemented")
+    out = TF.pad(nhwc_to_nchw(x), (pad,) * 4,
+                 mode="constant" if mode == "zero" else mode)
+    return nchw_to_nhwc(out).contiguous()
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)
+
+
+def _spatial_stats(x32: torch.Tensor):
+    """Per (image, channel) mean and biased variance over H x W, two-pass
+    in fp32: the mean first, then the mean of the centred squares."""
+    mean = x32.mean(dim=(1, 2), keepdim=True)
+    var = (x32 - mean).square().mean(dim=(1, 2), keepdim=True)
+    return mean, var
+
+
+def instance_norm(x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    """InstanceNorm2d(affine=False, track_running_stats=False): per-image
+    statistics in fp32, cast back to the activation dtype."""
+    x32 = x.float()
+    mean, var = _spatial_stats(x32)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               running_mean: Optional[torch.Tensor],
+               running_var: Optional[torch.Tensor], *, training: bool = False,
+               eps: float = 1e-5) -> torch.Tensor:
+    """BatchNorm2d.  ``training=True`` (or no running stats) normalizes with
+    PER-IMAGE statistics over H x W, not torch's statistics pooled over the
+    batch: the reference forwards one image at a time, where the two agree,
+    and a batched forward must not mix unrelated images.  Otherwise the
+    stored running statistics."""
+    x32 = x.float()
+    if training or running_mean is None:
+        mean, var = _spatial_stats(x32)
+    else:
+        mean, var = running_mean.float(), running_var.float()
+    scale = weight.float() * torch.rsqrt(var + eps)
+    shift = bias.float() - mean * scale
+    return (x32 * scale + shift).to(x.dtype)
+
+
 def leaky_relu(x: torch.Tensor, neg_slope: float = 0.2) -> torch.Tensor:
-    return torch.where(x >= 0, x, x * neg_slope)
+    """The slope multiplies in the activation dtype, as the JAX package's
+    ``x * jnp.asarray(neg_slope, x.dtype)``: in bf16 that is bf16(0.2), not
+    the fp32 0.2f a Python scalar would bring."""
+    return torch.where(x >= 0, x, x * torch.tensor(neg_slope, dtype=x.dtype))
 
 
 def act(kind: Optional[str], x: torch.Tensor) -> torch.Tensor:

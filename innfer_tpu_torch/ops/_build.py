@@ -5,7 +5,8 @@ shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds) and loaded with ``ctypes``.  Builds happen on first use,
 never at import, into ``innfer_tpu_torch/build/`` (listed in .gitignore),
 named by a hash of the source and flags so an edited source rebuilds.
-The loaded-library cache is the package's only global state.
+Each library has its own lock, so two libraries build at once from two
+threads.  The loaded-library cache is the package's only global state.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from collections import defaultdict
 from dataclasses import dataclass
 from typing import Dict
 
@@ -36,7 +38,7 @@ class Built:
 
 
 _built: Dict[str, Built] = {}
-_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = defaultdict(threading.Lock)
 
 
 def nvcc_path() -> str:
@@ -54,7 +56,7 @@ def nvcc_path() -> str:
 
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` (once per process and source) and load it."""
-    with _lock:
+    with _locks[name]:
         if name in _built:
             return _built[name]
         src = os.path.join(CSRC, f"{name}.cu")
@@ -85,16 +87,45 @@ def build(name: str) -> Built:
         return built
 
 
-def rdb_library() -> ctypes.CDLL:
-    """The fused-RDB library with its C signatures declared."""
-    built = build("rdb")
-    lib = built.lib
-    if not getattr(lib, "_innfer_declared", False):
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.innfer_rdb_forward.argtypes = [vp, vp, vp, vp, vp, vp,
-                                           i, i, i, i, i, i, i, vp]
-        lib.innfer_rdb_forward.restype = i
-        lib.innfer_cuda_error_string.argtypes = [i]
-        lib.innfer_cuda_error_string.restype = ctypes.c_char_p
-        lib._innfer_declared = True
+_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# each library's C entry points and their argument types (all return int)
+SIGNATURES = {
+    "rdb": {
+        "innfer_rdb_forward": [_vp] * 6 + [_i] * 7 + [_vp],
+        "innfer_rdb_forward_ws": [_vp] * 6 + [_i] * 7 + [_f, _vp],
+    },
+    "resnet_block": {
+        "innfer_resnet_block_forward": [_vp] * 8 + [_i] * 4 + [_f, _i, _vp],
+    },
+}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The built library ``name`` with its C signatures declared."""
+    lib = build(name).lib
+    with _locks[name]:
+        if not getattr(lib, "_innfer_declared", False):
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = _i
+            lib.innfer_cuda_error_string.argtypes = [_i]
+            lib.innfer_cuda_error_string.restype = ctypes.c_char_p
+            lib._innfer_declared = True
     return lib
+
+
+def rdb_library() -> ctypes.CDLL:
+    """The fused-RDB library (``csrc/rdb.cu``)."""
+    return library("rdb")
+
+
+def resnet_block_library() -> ctypes.CDLL:
+    """The fused-ResnetBlock library (``csrc/resnet_block.cu``)."""
+    return library("resnet_block")
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel failed: CUDA error {err} "
+                           f"({lib.innfer_cuda_error_string(err).decode()})")

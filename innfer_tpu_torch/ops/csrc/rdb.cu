@@ -27,6 +27,17 @@
 // padding at the tensor edge comes from the masked halo load; the ragged
 // edge is masked at the store.
 //
+// Chain mode (innfer_rdb_forward_ws) replaces the TPU kernels
+// rdb.py::fused_rdb_padded and, driven by the host loop in ops/rdb.py,
+// rdb.py::fused_rrdb_trunk.  The RDB's input is the x-slice of a workspace
+// that stays allocated across the calls of a trunk; conv5 writes straight
+// into the x-slice of the next workspace (no copy of x, no allocation per
+// call) and, for the last RDB of an RRDB, also applies the RRDB residual:
+//   out = cast(cast(cast(fp32(x5) * 0.2 + fp32(x)) * s) + res)
+// with s = 0.2 rounded to the activation dtype, each step rounded as the
+// activation dtype's arithmetic does (rdb.py:292 and :304).  The bound per
+// call is fused_rdb's plus one read of res.
+//
 // Left on the table: the tensor cores (wgmma bf16 -> fp32 would lift the
 // ceiling from 67 to 989 TFLOP/s), TMA/cp.async double buffering of the
 // halo, keeping x1..x4 on chip across the five convs, and one persistent
@@ -52,6 +63,7 @@ enum Epilogue {
   EPI_ACT_1X1 = 1,    // conv 2 of plus: ... + cast(conv1x1(x))
   EPI_ACT_X2 = 2,     // conv 4 of plus: ... + x2
   EPI_RESIDUAL = 3,   // conv 5: (acc + b5) * 0.2 + x -> output tensor
+  EPI_RRDB = 4,       // conv 5 of an RRDB's last RDB: ... then * s + res
 };
 
 struct ConvArgs {
@@ -60,6 +72,8 @@ struct ConvArgs {
   const void* w;     // packed weights [cin][9][cout]
   const float* bias; // [cout], fp32
   const void* w1;    // plus: conv1x1 weights [nf][gc]
+  const void* res;   // EPI_RRDB: the RRDB input, stride ctot (may alias dst)
+  float res_scale;   // EPI_RRDB: 0.2 rounded to the activation dtype
   int B, H, W, ctot, cin, cout, nf, gc;
   int dst_stride, dst_off, x2_off;
 };
@@ -84,11 +98,18 @@ __device__ __forceinline__ void epilogue(const ConvArgs& a, const float (&acc)[C
                                          size_t pix, int co0) {
   const T* ws = static_cast<const T*>(a.ws);
   T* dst = static_cast<T*>(a.dst) + pix * a.dst_stride + a.dst_off + co0;
-  if (EPI == EPI_RESIDUAL) {
+  if (EPI == EPI_RESIDUAL || EPI == EPI_RRDB) {
+    // res and dst may be the same memory: each element is read before it
+    // is written, by the thread that writes it (no __restrict__ here)
+    const T* res = static_cast<const T*>(a.res);
 #pragma unroll
     for (int co = 0; co < COG; ++co) {
       const float xv = to_f<T>(ws[pix * a.ctot + co0 + co]);
-      dst[co] = from_f<T>((acc[co] + a.bias[co0 + co]) * SLOPE + xv);
+      float v = (acc[co] + a.bias[co0 + co]) * SLOPE + xv;
+      if (EPI == EPI_RRDB)
+        v = __fadd_rn(rnd<T>(__fmul_rn(rnd<T>(v), a.res_scale)),
+                      to_f<T>(res[pix * a.ctot + co0 + co]));
+      dst[co] = from_f<T>(v);
     }
     return;
   }
@@ -194,7 +215,8 @@ cudaError_t launch_cog(const ConvArgs& a, int epi, cudaStream_t s) {
     case EPI_ACT: rdb_conv3x3<T, COG, EPI_ACT><<<grid, THREADS, 0, s>>>(a); break;
     case EPI_ACT_1X1: rdb_conv3x3<T, COG, EPI_ACT_1X1><<<grid, THREADS, 0, s>>>(a); break;
     case EPI_ACT_X2: rdb_conv3x3<T, COG, EPI_ACT_X2><<<grid, THREADS, 0, s>>>(a); break;
-    default: rdb_conv3x3<T, COG, EPI_RESIDUAL><<<grid, THREADS, 0, s>>>(a); break;
+    case EPI_RESIDUAL: rdb_conv3x3<T, COG, EPI_RESIDUAL><<<grid, THREADS, 0, s>>>(a); break;
+    default: rdb_conv3x3<T, COG, EPI_RRDB><<<grid, THREADS, 0, s>>>(a); break;
   }
   return cudaGetLastError();
 }
@@ -205,6 +227,47 @@ cudaError_t launch_conv(const ConvArgs& a, int epi, cudaStream_t s) {
   if (a.cout % 32 == 0) return launch_cog<T, 32>(a, epi, s);
   if (a.cout % 16 == 0) return launch_cog<T, 16>(a, epi, s);
   return launch_cog<T, 8>(a, epi, s);
+}
+
+// The five convs of one RDB whose input x is channels [0, nf) of ws.
+// conv5 writes channels [0, nf) of dst (pixel stride dst_stride); with res
+// it also applies the RRDB residual (EPI_RRDB).
+cudaError_t run_rdb(void* ws, void* dst, int dst_stride, const void* res,
+                    float res_scale, const void* w, const float* bias, const void* w1,
+                    int B, int H, int W, int nf, int gc, int plus, int dtype,
+                    cudaStream_t s) {
+  const size_t es = dtype == 1 ? 2 : 4;
+  const int ctot = nf + 4 * gc;
+  cudaError_t e = cudaSuccess;
+  size_t woff = 0;
+  int boff = 0;
+  for (int c = 1; c <= 5; ++c) {
+    ConvArgs a;
+    a.ws = ws;
+    a.cin = nf + (c - 1) * gc;
+    a.cout = c < 5 ? gc : nf;
+    a.w = static_cast<const char*>(w) + woff * es;
+    a.bias = bias + boff;
+    a.w1 = w1;
+    a.res = res;
+    a.res_scale = res_scale;
+    a.B = B; a.H = H; a.W = W;
+    a.ctot = ctot; a.nf = nf; a.gc = gc;
+    a.x2_off = nf + gc;
+    if (c < 5) {
+      a.dst = ws; a.dst_stride = ctot; a.dst_off = nf + (c - 1) * gc;
+    } else {
+      a.dst = dst; a.dst_stride = dst_stride; a.dst_off = 0;
+    }
+    const int epi = c == 5 ? (res != nullptr ? EPI_RRDB : EPI_RESIDUAL)
+                    : (plus && c == 2) ? EPI_ACT_1X1
+                    : (plus && c == 4) ? EPI_ACT_X2 : EPI_ACT;
+    e = dtype == 1 ? launch_conv<__nv_bfloat16>(a, epi, s) : launch_conv<float>(a, epi, s);
+    if (e != cudaSuccess) return e;
+    woff += (size_t)a.cin * 9 * a.cout;
+    boff += a.cout;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -225,33 +288,21 @@ int innfer_rdb_forward(const void* x, void* ws, void* out, const void* w,
   cudaError_t e = cudaMemcpy2DAsync(ws, ctot * es, x, nf * es, nf * es, (size_t)B * H * W,
                                     cudaMemcpyDeviceToDevice, s);
   if (e != cudaSuccess) return e;
-  size_t woff = 0;
-  int boff = 0;
-  for (int c = 1; c <= 5; ++c) {
-    ConvArgs a;
-    a.ws = ws;
-    a.cin = nf + (c - 1) * gc;
-    a.cout = c < 5 ? gc : nf;
-    a.w = static_cast<const char*>(w) + woff * es;
-    a.bias = bias + boff;
-    a.w1 = w1;
-    a.B = B; a.H = H; a.W = W;
-    a.ctot = ctot; a.nf = nf; a.gc = gc;
-    a.x2_off = nf + gc;
-    if (c < 5) {
-      a.dst = ws; a.dst_stride = ctot; a.dst_off = nf + (c - 1) * gc;
-    } else {
-      a.dst = out; a.dst_stride = nf; a.dst_off = 0;
-    }
-    const int epi = c == 5 ? EPI_RESIDUAL
-                    : (plus && c == 2) ? EPI_ACT_1X1
-                    : (plus && c == 4) ? EPI_ACT_X2 : EPI_ACT;
-    e = dtype == 1 ? launch_conv<__nv_bfloat16>(a, epi, s) : launch_conv<float>(a, epi, s);
-    if (e != cudaSuccess) return e;
-    woff += (size_t)a.cin * 9 * a.cout;
-    boff += a.cout;
-  }
-  return cudaGetLastError();
+  return run_rdb(ws, out, nf, nullptr, 0.f, w, bias, w1, B, H, W, nf, gc, plus, dtype, s);
+}
+
+// One RDB on persistent workspaces (chain mode).  ws, out_ws: (B, H, W,
+// nf + 4*gc); the input x is channels [0, nf) of ws, convs 1-4 fill ws's
+// other channels, and the output goes to channels [0, nf) of out_ws, which
+// must not be ws.  res: NULL, or a workspace whose channels [0, nf) hold
+// the RRDB input; it may be out_ws itself (the output then replaces the
+// RRDB input in place).  res_scale: 0.2 rounded to the activation dtype.
+int innfer_rdb_forward_ws(void* ws, void* out_ws, const void* res, const void* w,
+                          const float* bias, const void* w1, int B, int H, int W,
+                          int nf, int gc, int plus, int dtype, float res_scale,
+                          void* stream) {
+  return run_rdb(ws, out_ws, nf + 4 * gc, res, res_scale, w, bias, w1, B, H, W, nf, gc,
+                 plus, dtype, static_cast<cudaStream_t>(stream));
 }
 
 const char* innfer_cuda_error_string(int e) {

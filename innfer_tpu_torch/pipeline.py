@@ -259,7 +259,8 @@ class InferenceSession:
         model, params = load_model(
             paths[0], arch=self.presets.arch,
             scale=scale if scale is not None else scales[0],
-            param_dtype=compute_dtype, device=self.device, backend=backend)
+            param_dtype=compute_dtype, device=self.device, backend=backend,
+            strict=self.presets.strict)
         runner = None
         if self.presets.chop:
             runner = TiledRunner(

@@ -35,7 +35,9 @@ def _imported_roots(path):
 def test_scan_covers_the_port():
     files = _port_files()
     assert len(files) > 20
-    assert any(f.endswith(os.path.join("ops", "rdb.py")) for f in files)
+    assert os.path.join(ROOT, "chip_smoke.py") in files
+    for module in (("ops", "rdb.py"), ("ops", "resnet_block.py"), ("models", "resnet.py")):
+        assert any(f.endswith(os.path.join(*module)) for f in files)
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))

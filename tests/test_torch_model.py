@@ -17,10 +17,11 @@ import jax.numpy as jnp
 
 from innfer_tpu.config.defaults import get_network_config as jax_config
 from innfer_tpu.loader import load_model_from_state as jax_load_from_state
+from innfer_tpu.models.base import cast_params as jax_cast_params
 from innfer_tpu_torch.checkpoint.detect import load_checkpoint
 from innfer_tpu_torch.config.defaults import get_network_config
 from innfer_tpu_torch.loader import load_model, load_model_from_state
-from innfer_tpu_torch.models import get_network, params_from_jax
+from innfer_tpu_torch.models import cast_params, get_network, params_from_jax
 from innfer_tpu_torch.ops.rdb import fused_rdb
 from tools import synth_params as SP
 
@@ -61,6 +62,37 @@ def test_matches_jax_model_fp32(part, plus):
     out = fn_t(tp, torch.from_numpy(x)).numpy()
     assert out.shape == ref.shape
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("nb", [1, 2])
+def test_bf16_trunk_rounds_like_the_jax_package(nb):
+    """The RDB and RRDB residuals and the LReLU slope multiply by 0.2 in the
+    activation dtype (bf16(0.2) = 0.2001953125), as the JAX package does;
+    a Python 0.2 multiplies by fp32 0.2f and changes the rounding of about
+    15% of a 1-RRDB trunk's outputs (23% at 2 RRDBs).
+
+    Remaining difference: the biases are made bf16-representable, because
+    the port's conv rounds its bias to bf16 (cuDNN takes a bias of the
+    activation dtype) while the JAX package adds it in fp32; what is left
+    is the two frameworks' CPU conv summation order flipping a rare bf16
+    rounding, which the next convs spread (0.03% of values at nb=1, 0.4%
+    at nb=2, each at most one bf16 ulp)."""
+    spec = {"type": "esrgan", "nb": nb, "nf": 32, "gc": 16}
+    state = SP.esrgan_state(nb=nb, nf=32, gc=16, scale=4, seed=5)
+    # bf16-representable biases: no rounding when the port casts them
+    state = {k: (v.astype(jnp.bfloat16).astype(np.float32) if v.ndim == 1 else v)
+             for k, v in state.items()}
+    jm, jp = jax_load_from_state(state, jax_config(spec, 4))
+    tm = get_network(jax_config(dict(spec, backend="torch"), 4))
+    tp = params_from_jax({k: np.asarray(v) for k, v in jp.items()})
+    x = np.random.default_rng(1).random((1, 24, 32, 3), np.float32)
+    ref = np.asarray(jm.apply_trunk(jax_cast_params(jp, jnp.bfloat16),
+                                    jnp.asarray(x, jnp.bfloat16)), np.float32)
+    out = tm.apply_trunk(cast_params(tp, torch.bfloat16),
+                         torch.from_numpy(x).to(torch.bfloat16)).float().numpy()
+    d = np.abs(out - ref)
+    assert (d > 0).mean() < 0.01, (d > 0).mean()
+    assert (d <= 2.0 ** -8 * np.maximum(np.abs(ref), 1)).all(), d.max()
 
 
 def test_kernel_backend_on_cpu_runs_the_plain_version():
@@ -131,7 +163,7 @@ def test_golden_nr2_through_load_model_from_state():
     {"type": "evsrgan"},
     {"type": "esrgan", "backend": "scatter"},
     {"type": "srgan"},
-    {"type": "resnet_9blocks"},
+    {"type": "unet_256"},
 ])
 def test_configs_of_later_slices_raise(spec):
     cfg = get_network_config(dict(spec), 2)
