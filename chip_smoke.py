@@ -9,15 +9,20 @@ Phases, each printing its lines (any failure exits non-zero, and without
 the final result line):
   1. device   the card's name, the device count and nvidia-smi's name and
               power limit;
-  2. build    both kernel libraries (ops/csrc/rdb.cu, resnet_block.cu)
-              built at once with nvcc (sm_90a), with ptxas' register and
-              spill summary of each;
+  2. build    both kernel libraries (ops/csrc/rdb.cu, resnet_block.cu,
+              each with the shared ops/csrc/conv3x3_tc.cuh) built at once
+              with nvcc (sm_90a); for each, ptxas' registers and spills of
+              every tensor-core conv (conv_wgmma, one per N tile) with its
+              dynamic shared memory, and the count of HGMMA (wgmma)
+              instructions in the library's SASS (cuobjdump), which must be
+              above 0;
   3. kernel   fused_rdb against rdb_reference at nf=64, gc=32 on
               (1, 64, 1920, 64) strips, bf16 and fp32, with and without the
               ESRGAN+ plus; then timed with CUDA events at the main-path
               shape (1, 1088, 1920, 64) bf16 beside its bound, the plain
               version and the cuDNN conv chain (the library yardstick,
-              which the port never calls);
+              which the port never calls), with the achieved TFLOP/s and
+              the share of the bound;
   4. main     a seeded synthetic 4x ESRGAN (nb=23, nf=64, gc=32, upconv)
               saved with torch.save, and seeded 540x960 and 1080x1920
               PNGs, run through InferenceSession.process in bf16 with
@@ -32,7 +37,8 @@ the final result line):
               bf16 ulp is 2) and against 23 RRDBs of per-RDB fused_rdb plus
               the residual (equal to the last bit: the same conv code and
               the same rounding steps); both timed beside their bounds, the
-              plain versions and cuDNN; then the main path's images again
+              plain versions and cuDNN, with TFLOP/s and share of the bound;
+              then the main path's images again
               through InferenceSession with INNFER_RDB_CHAIN=1: 69
               fused_rdb_padded launches per image, none of fused_rdb, and
               >= 40 dB against the main path's PNGs;
@@ -42,7 +48,8 @@ the final result line):
               (fp32: max-abs 1e-4; bf16: PSNR >= 55 dB and every value
               within 2^-7 (|ref| + |ref - x| + 1), one bf16 ulp of the sum,
               of h2 and of IN's unit scale); then timed beside its bound,
-              the plain version and cuDNN convs + F.instance_norm;
+              the plain version and cuDNN convs + F.instance_norm, with
+              TFLOP/s and share of the bound;
   7. cyclegan a seeded synthetic CycleGAN resnet_9blocks (ngf=64) state
               dict with legacy InstanceNorm running-stat keys, and seeded
               512x512 and 1080x1920 PNGs, through InferenceSession with the
@@ -50,7 +57,9 @@ the final result line):
               tile_mode="auto": 9 fused_resnet_block launches per tile
               group, 1x PNGs, >= 40 dB against backend="torch", and fp32
               kernel path vs torch path >= 80 dB on a small input;
-  8. result   the kernels line, the card line and, last,
+  8. result   the kernels line (each kernel also with "tflops", its
+              achieved rate, and "bound_share", bound_ms / ms), the card
+              line and, last,
               {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Each path (main, chain, cyclegan) runs with every kernel's launch count set
 to 0 just before it and read just after; launches made to compare a kernel
@@ -195,18 +204,37 @@ def phase_device():
     return kind, count, smi
 
 
-def ptxas_summary(report: str) -> str:
-    regs = [int(l.split("Used ")[1].split()[0]) for l in report.splitlines()
-            if "Used " in l and "registers" in l]
-    spills, func = [], ""
+def ptxas_kernels(report: str) -> dict:
+    """Per kernel in nvcc's -Xptxas -v report: registers, spill-store bytes
+    and static shared memory."""
+    out, func = {}, None
     for line in report.splitlines():
-        if "Function properties for " in line:
-            func = line.split("Function properties for ")[1].strip()
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            func = m.group(1)
+            out[func] = {"regs": 0, "spill": 0, "smem": 0}
+            continue
+        if func is None:
+            continue
         m = re.search(r"(\d+) bytes spill stores", line)
-        if m and int(m.group(1)) > 0:
-            spills.append(f"{func} ({m.group(1)} B)")
-    return (f"{len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
-            f"spills in {len(spills)}: {'; '.join(spills) or '-'}")
+        if m:
+            out[func]["spill"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[func]["regs"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[func]["smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def sass_count(path: str, opcode: str) -> int:
+    """How many instructions of ``opcode`` the library's SASS holds."""
+    from innfer_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    return len(re.findall(rf"\b{opcode}\b", sass))
 
 
 def phase_build():
@@ -217,11 +245,27 @@ def phase_build():
         built = dict(zip(LIBS, pool.map(_build.build, LIBS)))
     for name, b in built.items():
         where = os.path.relpath(b.path, HERE)
+        hgmma = sass_count(b.path, "HGMMA")
         if not b.ptxas:
-            print(f"[build] {where} was already built", flush=True)
+            print(f"[build] {where} was already built; HGMMA in SASS: {hgmma}", flush=True)
         else:
-            print(f"[build] {where}: nvcc {b.seconds:.1f} s; ptxas: "
-                  f"{ptxas_summary(b.ptxas)}", flush=True)
+            lib = _build.library(name)
+            kernels = ptxas_kernels(b.ptxas)
+            tc = []
+            for func, k in sorted(kernels.items()):
+                m = re.search(r"conv_wgmmaILi(\d+)E", func)
+                if m:
+                    nt = int(m.group(1))
+                    tc.append((nt, f"N={nt}: {k['regs']} regs, {k['spill']} B spilled, "
+                                   f"{lib.innfer_conv_tc_smem_bytes(nt)} B dynamic smem"))
+            others = [k for f, k in kernels.items() if "conv_wgmma" not in f]
+            print(f"[build] {where}: nvcc {b.seconds:.1f} s; wgmma convs: "
+                  f"{'; '.join(t for _, t in sorted(tc))}; other kernels: {len(others)}, "
+                  f"registers {min(k['regs'] for k in others)}-"
+                  f"{max(k['regs'] for k in others)}, spills "
+                  f"{sum(k['spill'] for k in others)} B; HGMMA in SASS: {hgmma}", flush=True)
+        if hgmma == 0:
+            fail(f"{where} holds no HGMMA instruction: the bf16 conv is not on the tensor cores")
     print(f"[build] {len(LIBS)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -279,12 +323,14 @@ def phase_kernel(dev):
     t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BPS * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms, **rates(flops, ms, bound_ms)}
     print(f"[kernel] {shape} bf16: kernel {ms:.3f} ms, bound {bound_ms:.3f} ms "
           f"({bound_by}; {flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB), "
           f"plain {plain_ms:.3f} ms, cuDNN chain {library_ms:.3f} ms, "
-          f"max_abs {err:.3g}, {flops / ms / 1e9:.1f} TFLOP/s achieved", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+          f"max_abs {err:.3g}, {row['tflops']:.1f} TFLOP/s achieved, "
+          f"{100 * row['bound_share']:.1f}% of the bound", flush=True)
+    return row
 
 
 def phase_main(dev, work):
@@ -450,9 +496,11 @@ def phase_chain(dev, work, main):
     nbytes += shape[0] * shape[1] * shape[2] * NF * 2  # the residual read
     pad = {"max_abs_err": pad_err, "ms": pad_ms, "plain_ms": pad_plain_ms,
            "library_ms": pad_lib_ms, **bound(flops, nbytes)}
+    pad.update(rates(flops, pad_ms, pad["bound_ms"]))
     print(f"[chain] fused_rdb_padded: kernel {pad_ms:.3f} ms, bound {pad['bound_ms']:.3f} ms "
           f"({pad['bound_by']}), plain {pad_plain_ms:.3f} ms, cuDNN chain + residual "
-          f"{pad_lib_ms:.3f} ms", flush=True)
+          f"{pad_lib_ms:.3f} ms, {pad['tflops']:.1f} TFLOP/s, "
+          f"{100 * pad['bound_share']:.1f}% of the bound", flush=True)
     del wsp, out_ws, res_ws, ref_ws
 
     # the trunk: 69 chain-mode launches, vs its plain version and the per-RDB path
@@ -506,10 +554,12 @@ def phase_chain(dev, work, main):
     trunk_row = {"max_abs_err": err, "ms": trunk_ms, "plain_ms": trunk_plain_ms,
                  "library_ms": trunk_lib_ms,
                  **bound(NB * 3 * flops, 2 * x.numel() * 2 + NB * 3 * wbytes)}
+    trunk_row.update(rates(NB * 3 * flops, trunk_ms, trunk_row["bound_ms"]))
     print(f"[chain] fused_rrdb_trunk: {trunk_ms:.1f} ms per trunk, bound "
           f"{trunk_row['bound_ms']:.1f} ms ({trunk_row['bound_by']}), per-RDB fused_rdb path "
           f"{per_rdb_ms:.1f} ms, plain {trunk_plain_ms:.1f} ms, cuDNN chains "
-          f"{trunk_lib_ms:.1f} ms", flush=True)
+          f"{trunk_lib_ms:.1f} ms, {trunk_row['tflops']:.1f} TFLOP/s, "
+          f"{100 * trunk_row['bound_share']:.1f}% of the bound", flush=True)
     del x
 
     # the chain through the session, on the main path's images
@@ -554,6 +604,11 @@ def bound(flops: float, nbytes: float) -> dict:
     t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BPS * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def rates(flops: float, ms: float, bound_ms: float) -> dict:
+    """Achieved TFLOP/s and the share of the bound of a kernel time."""
+    return {"tflops": flops / ms / 1e9, "bound_share": bound_ms / ms}
 
 
 def block_params(torch, dev, dtype, c, bias, seed):
@@ -621,10 +676,11 @@ def phase_resnet_block(dev):
     flops = 2 * 2 * 9 * c * c * px
     row = {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            **bound(flops, 2 * px * c * 2 + 2 * 9 * c * c * 2 + 2 * c * 4)}
+    row.update(rates(flops, ms, row["bound_ms"]))
     print(f"[resnet_block] {main_shape} bf16: kernel {ms:.3f} ms, bound {row['bound_ms']:.3f} ms "
           f"({row['bound_by']}; {flops / 1e9:.1f} GFLOP), plain {plain_ms:.3f} ms, cuDNN + "
-          f"F.instance_norm {library_ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s achieved",
-          flush=True)
+          f"F.instance_norm {library_ms:.3f} ms, {row['tflops']:.1f} TFLOP/s achieved, "
+          f"{100 * row['bound_share']:.1f}% of the bound", flush=True)
     return row
 
 
@@ -767,8 +823,8 @@ def phase_cyclegan(dev, work):
     plans = "; ".join(f"{n} {g[3]} tiles of {g[1]}x{g[2]}, chunk {g[4]}, {g[0]} groups"
                       for n, g in groups.items())
     times = ", ".join(
-        f"{n} {t:.1f} ms ({b:.1f} ms in the 9 blocks' kernels; backend='torch' "
-        f"{a.elapsed_time(z):.1f} ms)"
+        f"{n} {t:.1f} ms ({b:.1f} ms in the blocks' kernels, {t - b:.1f} ms outside them; "
+        f"backend='torch' {a.elapsed_time(z):.1f} ms)"
         for n, t, b, (a, z) in zip(sizes, device_ms, block_ms, ref_events))
     print(f"[cyclegan] resnet_9blocks ngf={CG_NGF}, {len(sizes)} images in bf16, mode "
           f"{runner.last_mode} ({plans}): fused_resnet_block launches "
@@ -821,7 +877,7 @@ def main() -> int:
          "replaces": "innfer_tpu/ops/pallas/resnet_block.py:169", **rb},
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops", "bound_share")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -11,6 +11,14 @@ fp32 is the parity path and runs true fp32: cuDNN convolutions and cuBLAS
 matmuls would otherwise take TF32 on the card (``allow_tf32``), keeping
 about three decimal digits -- the same class of error as the round-5 TPU
 precision bug (``innfer_tpu/nn/functional.py::_mm_precision``).
+
+A bf16 convolution computes what the JAX package's does
+(``innfer_tpu/nn/functional.py:103-105``): bf16 operands, an fp32
+accumulator to which the fp32 bias is added, one rounding to bf16.  It
+runs as an fp32 convolution of the bf16-valued operands with TF32 allowed:
+bf16 values are exact in TF32 and their products exact in fp32, so TF32
+loses nothing here (on the CPU the flag is moot and the conv is true
+fp32).  A bf16 cuDNN conv would round the bias to bf16 before adding it.
 """
 from __future__ import annotations
 
@@ -37,6 +45,34 @@ def true_fp32(dtype: torch.dtype):
         cudnn.allow_tf32, matmul.allow_tf32 = prev
 
 
+@contextlib.contextmanager
+def _tf32_for_bf16_operands():
+    """Allow TF32 in cuDNN while an fp32 conv of bf16-valued operands runs
+    (exact: see the module docstring); the previous flag is restored."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.allow_tf32
+    cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = prev
+
+
+def _conv(fn, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], **kw):
+    """``fn`` (TF.conv2d or TF.conv_transpose2d) on NHWC ``x``: true fp32
+    for fp32/fp64 activations; otherwise bf16-valued operands accumulated
+    in fp32 with the fp32 bias, rounded once to the activation dtype."""
+    dt = x.dtype
+    if dt in (torch.float32, torch.float64):
+        with true_fp32(dt):
+            out = fn(nhwc_to_nchw(x), w.to(dt), None if b is None else b.to(dt), **kw)
+        return nchw_to_nhwc(out)
+    with _tf32_for_bf16_operands():
+        out = fn(nhwc_to_nchw(x).float(), w.to(dt).float(),
+                 None if b is None else b.float(), **kw)
+    return nchw_to_nhwc(out.to(dt))
+
+
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
     """NHWC -> NCHW view (channels-last memory when ``x`` is contiguous)."""
     return x.permute(0, 3, 1, 2)
@@ -50,15 +86,11 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
            *, stride: int = 1, padding: int = 0) -> torch.Tensor:
     """2D convolution, NHWC x OIHW -> NHWC.  Matches torch.nn.Conv2d.
 
-    Weights and bias are cast to the activation dtype (bf16 activations run
-    over fp32-stored biases); cuDNN accumulates in fp32 and adds the bias
-    in its epilogue before the single rounding to the activation dtype.
+    Weights are cast to the activation dtype; the bias stays fp32 and is
+    added to the fp32 accumulator before the one rounding (see the module
+    docstring).
     """
-    bias = None if b is None else b.to(x.dtype)
-    with true_fp32(x.dtype):
-        out = TF.conv2d(nhwc_to_nchw(x), w.to(x.dtype), bias, stride=stride,
-                        padding=padding)
-    return nchw_to_nhwc(out)
+    return _conv(TF.conv2d, x, w, b, stride=stride, padding=padding)
 
 
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
@@ -66,12 +98,10 @@ def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
                      padding: int = 1, output_padding: int = 0) -> torch.Tensor:
     """Transposed convolution, NHWC -> NHWC, matching torch.nn.ConvTranspose2d.
     ``w`` keeps the checkpoint's (I, O, kh, kw) layout, so no flip is needed:
-    out = (in - 1) * stride - 2 * padding + kh + output_padding."""
-    bias = None if b is None else b.to(x.dtype)
-    with true_fp32(x.dtype):
-        out = TF.conv_transpose2d(nhwc_to_nchw(x), w.to(x.dtype), bias, stride=stride,
-                                  padding=padding, output_padding=output_padding)
-    return nchw_to_nhwc(out)
+    out = (in - 1) * stride - 2 * padding + kh + output_padding.  Bias and
+    rounding as :func:`conv2d`."""
+    return _conv(TF.conv_transpose2d, x, w, b, stride=stride, padding=padding,
+                 output_padding=output_padding)
 
 
 def pad2d(x: torch.Tensor, pad: int, mode: str = "zero") -> torch.Tensor:

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds) and loaded with ``ctypes``.  Builds happen on first use,
 never at import, into ``innfer_tpu_torch/build/`` (listed in .gitignore),
-named by a hash of the source and flags so an edited source rebuilds.
+named by a hash of the source, the ``csrc/*.cuh`` headers it includes and
+the flags, so an edit of either rebuilds.
 Each library has its own lock, so two libraries build at once from two
 threads.  The loaded-library cache is the package's only global state.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -20,7 +22,7 @@ import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "ops", "csrc")
@@ -54,15 +56,43 @@ def nvcc_path() -> str:
         "CUDA kernels are built from source on the machine with the card")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def local_includes(path: str) -> List[str]:
+    """The ``csrc/`` files that ``path`` includes with ``#include "..."``,
+    directly or through another such file, in first-seen order."""
+    seen: List[str] = []
+    todo = [path]
+    while todo:
+        with open(todo.pop(0), "rb") as f:
+            text = f.read()
+        for inc in _INCLUDE.findall(text):
+            dep = os.path.join(CSRC, inc.decode())
+            if os.path.isfile(dep) and dep not in seen:
+                seen.append(dep)
+                todo.append(dep)
+    return seen
+
+
+def source_digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, every local header it includes, and the
+    flags: the build's name, so that an edit of any of them rebuilds."""
+    src = os.path.join(CSRC, f"{name}.cu")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src, *local_includes(src)]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` (once per process and source) and load it."""
     with _locks[name]:
         if name in _built:
             return _built[name]
         src = os.path.join(CSRC, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-        out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+        out = os.path.join(BUILD_DIR, f"lib{name}_{source_digest(name)}.so")
         seconds, report = 0.0, ""
         if not os.path.isfile(out):
             os.makedirs(BUILD_DIR, exist_ok=True)
@@ -71,7 +101,7 @@ def build(name: str) -> Built:
             t0 = time.perf_counter()
             try:
                 proc = subprocess.run(
-                    [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+                    [nvcc_path(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, src],
                     capture_output=True, text=True)
                 if proc.returncode != 0:
                     raise RuntimeError(
@@ -87,15 +117,16 @@ def build(name: str) -> Built:
         return built
 
 
-_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# each library's C entry points and their argument types (all return int)
+_vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# each library's C entry points: (argument types, return type)
 SIGNATURES = {
     "rdb": {
-        "innfer_rdb_forward": [_vp] * 6 + [_i] * 7 + [_vp],
-        "innfer_rdb_forward_ws": [_vp] * 6 + [_i] * 7 + [_f, _vp],
+        "innfer_rdb_forward": ([_vp] * 6 + [_i] * 7 + [_vp], _i),
+        "innfer_rdb_forward_ws": ([_vp] * 6 + [_i] * 7 + [_f, _vp], _i),
     },
     "resnet_block": {
-        "innfer_resnet_block_forward": [_vp] * 8 + [_i] * 4 + [_f, _i, _vp],
+        "innfer_resnet_block_forward": ([_vp] * 8 + [_i] * 4 + [_f, _i, _vp], _i),
+        "innfer_resnet_block_stats_floats": ([_i] * 5, _ll),
     },
 }
 
@@ -105,9 +136,11 @@ def library(name: str) -> ctypes.CDLL:
     lib = build(name).lib
     with _locks[name]:
         if not getattr(lib, "_innfer_declared", False):
-            for fn, argtypes in SIGNATURES[name].items():
+            for fn, (argtypes, restype) in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = _i
+                getattr(lib, fn).restype = restype
+            lib.innfer_conv_tc_smem_bytes.argtypes = [_i]
+            lib.innfer_conv_tc_smem_bytes.restype = _i
             lib.innfer_cuda_error_string.argtypes = [_i]
             lib.innfer_cuda_error_string.restype = ctypes.c_char_p
             lib._innfer_declared = True

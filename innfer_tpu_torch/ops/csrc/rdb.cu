@@ -14,18 +14,23 @@
 // at the H100's 989 TFLOP/s bf16 tensor rate (0.16 ms for the bytes at
 // 3.35 TB/s); 14.9 ms in fp32 at 67 TFLOP/s outside the tensor cores.
 //
-// Design (the simple, correct first form).  The TPU kernel keeps a whole
-// RDB in VMEM; one RDB's bf16 weights alone (468 KiB) exceed the 227 KB a
-// block may hold, so here the RDB is five launches of one direct-conv
-// kernel on a preallocated NHWC workspace [x | x1 | x2 | x3 | x4]
-// (nf + 4*gc channels): conv c reads channels [0, nf + (c-1)*gc) and writes
-// its gc outputs into its own channel slice, so no concat is materialized.
-// A block computes a 16x16 output tile for one group of COG output
-// channels; it stages the 18x18 input halo and the matching weight slice
-// in shared memory, 16 input channels at a time, as fp32, and each thread
-// accumulates two pixels x COG channels in fp32 registers (FFMA).  Zero
-// padding at the tensor edge comes from the masked halo load; the ragged
-// edge is masked at the store.
+// Design.  The TPU kernel keeps a whole RDB in VMEM; one RDB's bf16
+// weights alone (468 KiB) exceed the 227 KB a block may hold, so the RDB
+// is five conv launches on a preallocated NHWC workspace [x | x1 | x2 | x3
+// | x4] (nf + 4*gc channels): conv c reads channels [0, nf + (c-1)*gc) and
+// writes its outputs into its own channel slice, so no concat exists; the
+// x channels are read from x where it lies (no copy into the workspace).  The
+// conv is conv3x3_tc.cuh's: in bf16 the wgmma implicit GEMM with N = cout
+// (gc = 32 for convs 1-4, nf = 64 for conv5: one block covers all output
+// channels, so each halo is staged once), K = 9 x cin in 16-channel
+// chunks through a cp.async ring, zero padding from cp.async's zero fill;
+// in fp32 (the parity path) the FFMA direct conv.  Run on bf16 too, that
+// FFMA conv reached 23.7 TFLOP/s on an H100 (2.4% of the bound) on FP32
+// pipes, staged synchronously in fp32, and re-read conv5's halo per
+// 32-channel group; those three are what the tensor-core design removes.  The five
+// epilogues (RdbEpi) are applied to the accumulator plus the fp32 bias;
+// the ESRGAN+ 1x1 term (off the main path) stays an FFMA sum there,
+// rounded on its own as before.
 //
 // Chain mode (innfer_rdb_forward_ws) replaces the TPU kernels
 // rdb.py::fused_rdb_padded and, driven by the host loop in ops/rdb.py,
@@ -36,26 +41,21 @@
 //   out = cast(cast(cast(fp32(x5) * 0.2 + fp32(x)) * s) + res)
 // with s = 0.2 rounded to the activation dtype, each step rounded as the
 // activation dtype's arithmetic does (rdb.py:292 and :304).  The bound per
-// call is fused_rdb's plus one read of res.
+// call is fused_rdb's plus one read of res.  Both modes run the same conv
+// code in the same order, so the chain equals the per-RDB path bit for bit.
 //
-// Left on the table: the tensor cores (wgmma bf16 -> fp32 would lift the
-// ceiling from 67 to 989 TFLOP/s), TMA/cp.async double buffering of the
-// halo, keeping x1..x4 on chip across the five convs, and one persistent
-// launch per trunk.  Every conv re-reads its halo from L2 once per output
-// channel group.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
+// Left on the table: conv3x3_tc.cuh's list, and here keeping x1..x4 on
+// chip across the five convs (each conv reads its cin channels of the
+// workspace from device memory: 2.7 GB per call at 1080p, 0.8 ms at 3.35
+// TB/s) and one CUDA graph or persistent launch over the trunk.
+#include "conv3x3_tc.cuh"
 
 namespace {
 
-constexpr int TILE = 16;                  // output tile edge (pixels)
-constexpr int HALO = TILE + 2;            // 18: tile plus a 1-pixel ring
-constexpr int ROW_S = 24;                 // shared row stride (floats): a warp's
-                                          // two pixel rows land in disjoint banks
-constexpr int CH_S = HALO * ROW_S + 1;    // per-channel stride, odd
-constexpr int CK = 16;                    // input channels per staged chunk
-constexpr int THREADS = 128;              // 16 columns x 8 row pairs
+using conv3x3::from_f;
+using conv3x3::rnd;
+using conv3x3::to_f;
+
 constexpr float SLOPE = 0.2f;
 
 enum Epilogue {
@@ -66,208 +66,126 @@ enum Epilogue {
   EPI_RRDB = 4,       // conv 5 of an RRDB's last RDB: ... then * s + res
 };
 
-struct ConvArgs {
-  const void* ws;    // workspace (B, H, W, ctot); reads channels [0, cin)
-  void* dst;         // workspace or output tensor
-  const void* w;     // packed weights [cin][9][cout]
-  const float* bias; // [cout], fp32
-  const void* w1;    // plus: conv1x1 weights [nf][gc]
-  const void* res;   // EPI_RRDB: the RRDB input, stride ctot (may alias dst)
+// v = conv sum + fp32 bias for channels co, co + 1 of pixel pix.
+template <typename T>
+struct RdbEpi {
+  static constexpr bool kStats = false;
+  const T* x;        // the RDB input (B, H, W, nf), pixel stride xs
+  const T* ws;       // workspace (B, H, W, ctot)
+  T* dst;            // workspace or output tensor
+  const T* w1;       // plus: conv1x1 weights [nf][gc]
+  const T* res;      // EPI_RRDB: the RRDB input, stride ctot (may alias dst)
   float res_scale;   // EPI_RRDB: 0.2 rounded to the activation dtype
-  int B, H, W, ctot, cin, cout, nf, gc;
-  int dst_stride, dst_off, x2_off;
+  int kind, xs, ctot, nf, gc, dst_stride, dst_off, x2_off;
+
+  // ESRGAN+ only: sum over ci of x[pix, ci] * w1[ci][co].  Not inlined:
+  // the epilogue is unrolled over every accumulator pair, and inlining this
+  // loop into each copy multiplied the kernels' compile time.
+  __device__ __noinline__ float conv1x1(size_t pix, int co) const {
+    float p = 0.f;
+    for (int ci = 0; ci < nf; ++ci)
+      p += to_f<T>(x[pix * xs + ci]) * to_f<T>(w1[(size_t)ci * gc + co]);
+    return p;
+  }
+
+  __device__ __forceinline__ void operator()(size_t pix, int co, float v0, float v1) const {
+    const float v[2] = {v0, v1};
+    float o[2];
+    T* d = dst + pix * dst_stride + dst_off + co;
+    if (kind >= EPI_RESIDUAL) {
+      // res and dst may be the same memory: each element is read before it
+      // is written, by the thread that writes it (no __restrict__ here)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float r = v[e] * SLOPE + to_f<T>(x[pix * xs + co + e]);
+        if (kind == EPI_RRDB)
+          r = __fadd_rn(rnd<T>(__fmul_rn(rnd<T>(r), res_scale)),
+                        to_f<T>(res[pix * ctot + co + e]));
+        o[e] = r;
+      }
+      conv3x3::store2(d, o[0], o[1]);
+      return;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float a = rnd<T>(v[e] >= 0.f ? v[e] : v[e] * SLOPE);
+      if (kind == EPI_ACT_1X1) a += rnd<T>(conv1x1(pix, co + e));
+      if (kind == EPI_ACT_X2) a += to_f<T>(ws[pix * ctot + x2_off + co + e]);
+      o[e] = a;
+    }
+    conv3x3::store2(d, o[0], o[1]);
+  }
 };
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-// a value rounded through the activation dtype
-template <typename T> __device__ __forceinline__ float rnd(float v) {
-  return to_f<T>(from_f<T>(v));
-}
-
-template <typename T, int COG, int EPI>
-__device__ __forceinline__ void epilogue(const ConvArgs& a, const float (&acc)[COG],
-                                         size_t pix, int co0) {
-  const T* ws = static_cast<const T*>(a.ws);
-  T* dst = static_cast<T*>(a.dst) + pix * a.dst_stride + a.dst_off + co0;
-  if (EPI == EPI_RESIDUAL || EPI == EPI_RRDB) {
-    // res and dst may be the same memory: each element is read before it
-    // is written, by the thread that writes it (no __restrict__ here)
-    const T* res = static_cast<const T*>(a.res);
-#pragma unroll
-    for (int co = 0; co < COG; ++co) {
-      const float xv = to_f<T>(ws[pix * a.ctot + co0 + co]);
-      float v = (acc[co] + a.bias[co0 + co]) * SLOPE + xv;
-      if (EPI == EPI_RRDB)
-        v = __fadd_rn(rnd<T>(__fmul_rn(rnd<T>(v), a.res_scale)),
-                      to_f<T>(res[pix * a.ctot + co0 + co]));
-      dst[co] = from_f<T>(v);
-    }
-    return;
-  }
-  float p[COG];
-  if (EPI == EPI_ACT_1X1) {
-    const T* w1 = static_cast<const T*>(a.w1);
-#pragma unroll
-    for (int co = 0; co < COG; ++co) p[co] = 0.f;
-    for (int ci = 0; ci < a.nf; ++ci) {
-      const float xv = to_f<T>(ws[pix * a.ctot + ci]);
-#pragma unroll
-      for (int co = 0; co < COG; ++co)
-        p[co] += xv * to_f<T>(w1[(size_t)ci * a.gc + co0 + co]);
-    }
-  }
-#pragma unroll
-  for (int co = 0; co < COG; ++co) {
-    float v = acc[co] + a.bias[co0 + co];
-    v = rnd<T>(v >= 0.f ? v : v * SLOPE);
-    if (EPI == EPI_ACT_1X1) v += rnd<T>(p[co]);
-    if (EPI == EPI_ACT_X2) v += to_f<T>(ws[pix * a.ctot + a.x2_off + co0 + co]);
-    dst[co] = from_f<T>(v);
-  }
-}
-
-template <typename T, int COG, int EPI>
-__global__ void __launch_bounds__(THREADS) rdb_conv3x3(ConvArgs a) {
-  __shared__ float hs[CK * CH_S];
-  __shared__ __align__(16) float wsm[CK * 9 * COG];
-  const T* src = static_cast<const T*>(a.ws);
-  const T* wg = static_cast<const T*>(a.w);
-  const int tid = threadIdx.x;
-  const int px = tid & (TILE - 1);
-  const int py0 = (tid / TILE) * 2;
-  const int x0 = blockIdx.x * TILE;
-  const int y0 = blockIdx.y * TILE;
-  const int groups = a.cout / COG;
-  const int b = blockIdx.z / groups;
-  const int co0 = (blockIdx.z % groups) * COG;
-  const size_t img = (size_t)b * a.H * a.W;
-
-  float acc0[COG], acc1[COG];
-#pragma unroll
-  for (int co = 0; co < COG; ++co) acc0[co] = acc1[co] = 0.f;
-
-  for (int c0 = 0; c0 < a.cin; c0 += CK) {
-    for (int i = tid; i < HALO * HALO * CK; i += THREADS) {
-      const int ci = i % CK, p = i / CK;
-      const int hy = p / HALO, hx = p % HALO;
-      const int gy = y0 + hy - 1, gx = x0 + hx - 1, c = c0 + ci;
-      float v = 0.f;
-      if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < a.cin)
-        v = to_f<T>(src[(img + (size_t)gy * a.W + gx) * a.ctot + c]);
-      hs[ci * CH_S + hy * ROW_S + hx] = v;
-    }
-    for (int i = tid; i < CK * 9 * COG; i += THREADS) {
-      const int co = i % COG, r = i / COG;  // r = ci * 9 + tap
-      const int c = c0 + r / 9;
-      wsm[i] = c < a.cin ? to_f<T>(wg[((size_t)c * 9 + r % 9) * a.cout + co0 + co]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int ci = 0; ci < CK; ++ci) {
-      const float* h = hs + ci * CH_S + py0 * ROW_S + px;
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        float v[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) v[r] = h[r * ROW_S + dx];
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-          const float4* wv =
-              reinterpret_cast<const float4*>(wsm + (ci * 9 + dy * 3 + dx) * COG);
-#pragma unroll
-          for (int q = 0; q < COG / 4; ++q) {
-            const float4 w4 = wv[q];
-            acc0[4 * q + 0] += v[dy] * w4.x;
-            acc0[4 * q + 1] += v[dy] * w4.y;
-            acc0[4 * q + 2] += v[dy] * w4.z;
-            acc0[4 * q + 3] += v[dy] * w4.w;
-            acc1[4 * q + 0] += v[dy + 1] * w4.x;
-            acc1[4 * q + 1] += v[dy + 1] * w4.y;
-            acc1[4 * q + 2] += v[dy + 1] * w4.z;
-            acc1[4 * q + 3] += v[dy + 1] * w4.w;
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const int gx = x0 + px;
-  if (gx >= a.W) return;
-  const int gy = y0 + py0;
-  if (gy < a.H) epilogue<T, COG, EPI>(a, acc0, img + (size_t)gy * a.W + gx, co0);
-  if (gy + 1 < a.H) epilogue<T, COG, EPI>(a, acc1, img + (size_t)(gy + 1) * a.W + gx, co0);
-}
-
-template <typename T, int COG>
-cudaError_t launch_cog(const ConvArgs& a, int epi, cudaStream_t s) {
-  const dim3 grid((a.W + TILE - 1) / TILE, (a.H + TILE - 1) / TILE, a.B * (a.cout / COG));
-  switch (epi) {
-    case EPI_ACT: rdb_conv3x3<T, COG, EPI_ACT><<<grid, THREADS, 0, s>>>(a); break;
-    case EPI_ACT_1X1: rdb_conv3x3<T, COG, EPI_ACT_1X1><<<grid, THREADS, 0, s>>>(a); break;
-    case EPI_ACT_X2: rdb_conv3x3<T, COG, EPI_ACT_X2><<<grid, THREADS, 0, s>>>(a); break;
-    case EPI_RESIDUAL: rdb_conv3x3<T, COG, EPI_RESIDUAL><<<grid, THREADS, 0, s>>>(a); break;
-    default: rdb_conv3x3<T, COG, EPI_RRDB><<<grid, THREADS, 0, s>>>(a); break;
-  }
-  return cudaGetLastError();
-}
-
-// the widest output-channel group that divides cout (a multiple of 8)
-template <typename T>
-cudaError_t launch_conv(const ConvArgs& a, int epi, cudaStream_t s) {
-  if (a.cout % 32 == 0) return launch_cog<T, 32>(a, epi, s);
-  if (a.cout % 16 == 0) return launch_cog<T, 16>(a, epi, s);
-  return launch_cog<T, 8>(a, epi, s);
-}
-
-// The five convs of one RDB whose input x is channels [0, nf) of ws.
+// The five convs of one RDB on input x (pixel stride xs; channels [0, nf)
+// of ws in chain mode), with x1..x4 in channels [nf, nf + 4*gc) of ws.
 // conv5 writes channels [0, nf) of dst (pixel stride dst_stride); with res
 // it also applies the RRDB residual (EPI_RRDB).
-cudaError_t run_rdb(void* ws, void* dst, int dst_stride, const void* res,
-                    float res_scale, const void* w, const float* bias, const void* w1,
-                    int B, int H, int W, int nf, int gc, int plus, int dtype,
-                    cudaStream_t s) {
-  const size_t es = dtype == 1 ? 2 : 4;
+template <typename T>
+cudaError_t run_rdb(const T* x, int xs, T* ws, T* dst, int dst_stride, const T* res,
+                    float res_scale,
+                    const T* w, const float* bias, const T* w1, int B, int H, int W,
+                    int nf, int gc, int plus, cudaStream_t s) {
   const int ctot = nf + 4 * gc;
-  cudaError_t e = cudaSuccess;
   size_t woff = 0;
   int boff = 0;
   for (int c = 1; c <= 5; ++c) {
-    ConvArgs a;
-    a.ws = ws;
-    a.cin = nf + (c - 1) * gc;
-    a.cout = c < 5 ? gc : nf;
-    a.w = static_cast<const char*>(w) + woff * es;
-    a.bias = bias + boff;
-    a.w1 = w1;
-    a.res = res;
-    a.res_scale = res_scale;
-    a.B = B; a.H = H; a.W = W;
-    a.ctot = ctot; a.nf = nf; a.gc = gc;
-    a.x2_off = nf + gc;
+    conv3x3::Geom g;
+    g.src = ws;
+    g.head = x;
+    g.head_stride = xs;
+    g.head_ch = nf;
+    g.bias = bias + boff;
+    g.B = B; g.H = H; g.W = W;
+    g.ctot = ctot;
+    g.cin = nf + (c - 1) * gc;
+    g.cout = c < 5 ? gc : nf;
+    RdbEpi<T> epi;
+    epi.x = x;
+    epi.xs = xs;
+    epi.ws = ws;
+    epi.w1 = w1;
+    epi.res = res;
+    epi.res_scale = res_scale;
+    epi.ctot = ctot; epi.nf = nf; epi.gc = gc;
+    epi.x2_off = nf + gc;
     if (c < 5) {
-      a.dst = ws; a.dst_stride = ctot; a.dst_off = nf + (c - 1) * gc;
+      epi.dst = ws; epi.dst_stride = ctot; epi.dst_off = nf + (c - 1) * gc;
     } else {
-      a.dst = dst; a.dst_stride = dst_stride; a.dst_off = 0;
+      epi.dst = dst; epi.dst_stride = dst_stride; epi.dst_off = 0;
     }
-    const int epi = c == 5 ? (res != nullptr ? EPI_RRDB : EPI_RESIDUAL)
-                    : (plus && c == 2) ? EPI_ACT_1X1
-                    : (plus && c == 4) ? EPI_ACT_X2 : EPI_ACT;
-    e = dtype == 1 ? launch_conv<__nv_bfloat16>(a, epi, s) : launch_conv<float>(a, epi, s);
+    epi.kind = c == 5 ? (res != nullptr ? EPI_RRDB : EPI_RESIDUAL)
+               : (plus && c == 2) ? EPI_ACT_1X1
+               : (plus && c == 4) ? EPI_ACT_X2 : EPI_ACT;
+    cudaError_t e;
+    if constexpr (sizeof(T) == 2)
+      e = conv3x3::launch_wgmma<conv3x3::ZeroPad>(g, w + woff, epi, s);
+    else
+      e = conv3x3::launch_ffma<T, conv3x3::ZeroPad>(g, w + woff, epi, s);
     if (e != cudaSuccess) return e;
-    woff += (size_t)a.cin * 9 * a.cout;
-    boff += a.cout;
+    woff += conv3x3::packed_elems(g.cin, g.cout);
+    boff += g.cout;
   }
   return cudaGetLastError();
+}
+
+cudaError_t run_rdb_dtype(const void* x, int xs, void* ws, void* dst, int dst_stride,
+                          const void* res,
+                          float res_scale, const void* w, const float* bias, const void* w1,
+                          int B, int H, int W, int nf, int gc, int plus, int dtype,
+                          cudaStream_t s) {
+  if (dtype == 1) {
+    using T = __nv_bfloat16;
+    return run_rdb<T>(static_cast<const T*>(x), xs, static_cast<T*>(ws), static_cast<T*>(dst),
+                      dst_stride,
+                      static_cast<const T*>(res), res_scale, static_cast<const T*>(w), bias,
+                      static_cast<const T*>(w1), B, H, W, nf, gc, plus, s);
+  }
+  return run_rdb<float>(static_cast<const float*>(x), xs, static_cast<float*>(ws),
+                        static_cast<float*>(dst), dst_stride,
+                        static_cast<const float*>(res), res_scale,
+                        static_cast<const float*>(w), bias, static_cast<const float*>(w1), B,
+                        H, W, nf, gc, plus, s);
 }
 
 }  // namespace
@@ -275,20 +193,17 @@ cudaError_t run_rdb(void* ws, void* dst, int dst_stride, const void* res,
 extern "C" {
 
 // One RDB forward on `stream`.  x, out: (B, H, W, nf); ws: (B, H, W,
-// nf + 4*gc) scratch; w: the five convs' weights packed [cin][9][cout] back
-// to back; bias: the five biases back to back (fp32); w1: conv1x1 weights
-// [nf][gc] when plus != 0.  dtype 0 = fp32, 1 = bf16.  Returns the first
-// CUDA error (cudaSuccess = 0).
+// nf + 4*gc) scratch (its channels [0, nf) are not used: the convs read x
+// where it lies); w: the five convs' weights in conv3x3_tc.cuh's
+// packed layout, back to back; bias: the five biases back to back (fp32);
+// w1: conv1x1 weights [nf][gc] when plus != 0.  dtype 0 = fp32, 1 = bf16
+// (bf16 pointers 16-byte aligned).  Returns the first CUDA error
+// (cudaSuccess = 0).
 int innfer_rdb_forward(const void* x, void* ws, void* out, const void* w,
                        const float* bias, const void* w1, int B, int H, int W,
                        int nf, int gc, int plus, int dtype, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t es = dtype == 1 ? 2 : 4;
-  const int ctot = nf + 4 * gc;
-  cudaError_t e = cudaMemcpy2DAsync(ws, ctot * es, x, nf * es, nf * es, (size_t)B * H * W,
-                                    cudaMemcpyDeviceToDevice, s);
-  if (e != cudaSuccess) return e;
-  return run_rdb(ws, out, nf, nullptr, 0.f, w, bias, w1, B, H, W, nf, gc, plus, dtype, s);
+  return run_rdb_dtype(x, nf, ws, out, nf, nullptr, 0.f, w, bias, w1, B, H, W, nf, gc, plus,
+                       dtype, static_cast<cudaStream_t>(stream));
 }
 
 // One RDB on persistent workspaces (chain mode).  ws, out_ws: (B, H, W,
@@ -301,8 +216,8 @@ int innfer_rdb_forward_ws(void* ws, void* out_ws, const void* res, const void* w
                           const float* bias, const void* w1, int B, int H, int W,
                           int nf, int gc, int plus, int dtype, float res_scale,
                           void* stream) {
-  return run_rdb(ws, out_ws, nf + 4 * gc, res, res_scale, w, bias, w1, B, H, W, nf, gc,
-                 plus, dtype, static_cast<cudaStream_t>(stream));
+  return run_rdb_dtype(ws, nf + 4 * gc, ws, out_ws, nf + 4 * gc, res, res_scale, w, bias, w1, B,
+                       H, W, nf, gc, plus, dtype, static_cast<cudaStream_t>(stream));
 }
 
 const char* innfer_cuda_error_string(int e) {

@@ -1,5 +1,6 @@
 """Fused Residual Dense Block (RDB_5C): the hand-written CUDA kernel
-(``csrc/rdb.cu``) and its plain PyTorch version.
+(``csrc/rdb.cu`` on the shared conv core ``csrc/conv3x3_tc.cuh``: bf16 on
+the tensor cores, fp32 on the FP32 pipes) and its plain PyTorch version.
 
 Replaces ``innfer_tpu/ops/pallas/rdb.py::fused_rdb``.  One RDB computes
 
@@ -34,6 +35,7 @@ import torch
 import torch.nn.functional as TF
 
 from innfer_tpu_torch.nn.functional import nchw_to_nhwc, nhwc_to_nchw, true_fp32
+from innfer_tpu_torch.ops.conv3x3 import pack_conv3x3
 
 NEG_SLOPE = 0.2
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,9 +50,9 @@ def res_scale(dtype: torch.dtype) -> torch.Tensor:
 
 
 class PackedRDB(NamedTuple):
-    """Kernel-layout parameters of one RDB: the five conv weights as
-    [cin][9][cout] back to back, the biases back to back (fp32), and the
-    conv1x1 weights as [nf][gc] (None without plus)."""
+    """Kernel-layout parameters of one RDB: the five conv weights in the
+    packed layout of ``ops/conv3x3.py`` back to back, the biases back to
+    back (fp32), and the conv1x1 weights as [nf][gc] (None without plus)."""
 
     w: torch.Tensor
     b: torch.Tensor
@@ -59,7 +61,7 @@ class PackedRDB(NamedTuple):
 
 def pack_rdb(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
              conv1x1_w: Optional[torch.Tensor], dtype: torch.dtype) -> PackedRDB:
-    w = torch.cat([wc.to(dtype).permute(1, 2, 3, 0).reshape(-1) for wc in weights])
+    w = torch.cat([pack_conv3x3(wc, dtype) for wc in weights])
     b = torch.cat([bc.to(torch.float32).reshape(-1) for bc in biases])
     w1 = None
     if conv1x1_w is not None:
@@ -161,6 +163,8 @@ def _packed_for(x, weights, biases, plus, conv1x1_w, packed):
         packed = pack_rdb(weights, biases, conv1x1_w if plus else None, x.dtype)
     if packed.w.dtype != x.dtype or packed.w.device != x.device:
         raise ValueError("packed weights do not match x's dtype and device")
+    if x.data_ptr() % 16:
+        raise ValueError("the kernel stages 16-byte pieces: x must be 16-byte aligned")
     return packed
 
 

@@ -1,5 +1,7 @@
 """Fused CycleGAN ResnetBlock: the hand-written CUDA kernel
-(``csrc/resnet_block.cu``) and its plain PyTorch version.
+(``csrc/resnet_block.cu`` on the shared conv core ``csrc/conv3x3_tc.cuh``:
+bf16 on the tensor cores, fp32 on the FP32 pipes) and its plain PyTorch
+version.
 
 Replaces ``innfer_tpu/ops/pallas/resnet_block.py::fused_resnet_block``.
 One block (reference ResNet_arch.py build_conv_block, instance norm,
@@ -10,7 +12,8 @@ reflect padding) computes
     out = cast(fp32(x) + fp32(h2))
 
 IN is per (image, channel) over H x W: biased variance, eps 1e-5, no
-affine, two-pass fp32 statistics.  These are the Pallas kernel's rounding
+affine, fp32 mean and centred variance (the plain version two-pass; the
+bf16 kernel per-tile mean and M2 merged with Chan's formula).  These are the Pallas kernel's rounding
 points (resnet_block.py:88-103), not the plain model path's: the conv sum
 goes into IN in fp32 without a rounding to the activation dtype.
 
@@ -31,6 +34,7 @@ import torch
 import torch.nn.functional as TF
 
 from innfer_tpu_torch.nn.functional import nchw_to_nhwc, nhwc_to_nchw, true_fp32
+from innfer_tpu_torch.ops.conv3x3 import pack_conv3x3
 
 EPS = 1e-5
 CH_GROUP = 32
@@ -38,9 +42,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 class PackedBlock(NamedTuple):
-    """Kernel-layout parameters of one block: each conv's weights as
-    [cin][3][3][cout] in the activation dtype, biases fp32 (zeros for a
-    bias-free conv)."""
+    """Kernel-layout parameters of one block: each conv's weights in the
+    packed layout of ``ops/conv3x3.py``, in the activation dtype; biases
+    fp32 (zeros for a bias-free conv)."""
 
     w1: torch.Tensor
     b1: torch.Tensor
@@ -55,8 +59,7 @@ def pack_resnet_block(w1: torch.Tensor, b1: Optional[torch.Tensor], w2: torch.Te
             return torch.zeros(w1.shape[0], dtype=torch.float32, device=w1.device)
         return b.to(torch.float32).contiguous()
 
-    return PackedBlock(w1.to(dtype).permute(1, 2, 3, 0).contiguous(), pack_b(b1),
-                       w2.to(dtype).permute(1, 2, 3, 0).contiguous(), pack_b(b2))
+    return PackedBlock(pack_conv3x3(w1, dtype), pack_b(b1), pack_conv3x3(w2, dtype), pack_b(b2))
 
 
 def resnet_block_ok(shape: Tuple[int, ...], dtype: torch.dtype) -> bool:
@@ -124,13 +127,16 @@ def fused_resnet_block(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Ten
         packed = pack_resnet_block(w1, b1, w2, b2, x.dtype)
     if packed.w1.dtype != x.dtype or packed.w1.device != x.device:
         raise ValueError("packed weights do not match x's dtype and device")
+    if x.data_ptr() % 16:
+        raise ValueError("the kernel stages 16-byte pieces: x must be 16-byte aligned")
     from innfer_tpu_torch.ops import _build
 
     lib = _build.resnet_block_library()
     b, h, w, c = x.shape
     out = torch.empty_like(x)
     acc = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    stats = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    stats = torch.empty(lib.innfer_resnet_block_stats_floats(b, h, w, c, _DTYPE_CODE[x.dtype]),
+                        dtype=torch.float32, device=x.device)
     err = lib.innfer_resnet_block_forward(
         x.data_ptr(), out.data_ptr(), acc.data_ptr(), stats.data_ptr(),
         packed.w1.data_ptr(), packed.b1.data_ptr(), packed.w2.data_ptr(),

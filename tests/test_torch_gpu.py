@@ -13,6 +13,9 @@ For the ResnetBlock in bf16, every value within 2^-7 (|ref| + |ref - x| +
 1): one bf16 ulp of the sum, of h2 and of instance norm's unit scale (see
 tests/test_torch_resnet.py).  The chain-mode trunk equals the per-RDB
 kernel path exactly: the same conv code and the same rounding steps.
+The bf16 kernels run on the tensor cores (wgmma); the cases cut ragged
+tiles (W, H not multiples of the 64-column, 2..8-row tile), cin and cout
+not multiples of the 16-channel chunk or of a wgmma width.
 """
 import math
 
@@ -22,8 +25,11 @@ import torch
 
 from innfer_tpu_torch.config.defaults import get_network_config
 from innfer_tpu_torch.models import convert_state, get_network
-from innfer_tpu_torch.ops.rdb import (fused_rdb, fused_rrdb_trunk, rdb_reference,
-                                      res_scale, rrdb_trunk_reference)
+from innfer_tpu_torch.nn import functional as F
+from innfer_tpu_torch.nn.functional import true_fp32
+from innfer_tpu_torch.ops.rdb import (fused_rdb, fused_rdb_padded, fused_rrdb_trunk,
+                                      rdb_padded_reference, rdb_reference, res_scale,
+                                      rrdb_trunk_reference)
 from innfer_tpu_torch.ops.resnet_block import fused_resnet_block, resnet_block_reference
 
 
@@ -45,12 +51,13 @@ def _rdb(dev, dtype, nf, gc, plus, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.05)])
-@pytest.mark.parametrize("nf,gc,plus", [(64, 32, False), (64, 32, True),
-                                        (32, 16, True), (24, 8, False)])
-def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, nf, gc, plus):
+@pytest.mark.parametrize("nf,gc,plus,hw", [(64, 32, False, (37, 70)), (64, 32, True, (37, 70)),
+                                           (32, 16, True, (37, 70)), (24, 8, False, (37, 70)),
+                                           (64, 32, False, (9, 129)), (24, 8, True, (3, 65))])
+def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, nf, gc, plus, hw):
     ws, bs, w1 = _rdb(cuda_device, dtype, nf, gc, plus, seed=1)
     g = torch.Generator().manual_seed(2)
-    x = torch.randn(2, 37, 70, nf, generator=g).to(cuda_device, dtype)
+    x = torch.randn(2, *hw, nf, generator=g).to(cuda_device, dtype)
     before = fused_rdb.launches
     out = fused_rdb(x, ws, bs, plus=plus, conv1x1_w=w1)
     torch.cuda.synchronize()
@@ -128,7 +135,8 @@ def test_trunk_matches_plain_and_per_rdb_path_on_card(cuda_device, dtype, nb, nr
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,bias", [((2, 24, 40, 256), True), ((3, 2, 5, 32), False),
-                                        ((1, 19, 23, 64), True)])
+                                        ((1, 19, 23, 64), True), ((1, 11, 130, 32), True),
+                                        ((2, 5, 65, 256), False), ((1, 7, 70, 128), True)])
 def test_resnet_block_matches_plain_on_card(cuda_device, dtype, shape, bias):
     c = shape[-1]
     g = torch.Generator().manual_seed(4)
@@ -147,6 +155,45 @@ def test_resnet_block_matches_plain_on_card(cuda_device, dtype, shape, bias):
         assert d.max().item() < 1e-4
     else:
         assert (d <= 2.0 ** -7 * (ref.abs() + (ref - x.float()).abs() + 1)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_in_place_residual_on_card(cuda_device, dtype):
+    """fused_rdb_padded with res the output workspace itself: the output
+    replaces the RRDB input in place, as fused_rrdb_trunk uses it."""
+    nf, gc = 64, 32
+    ws, bs, _ = _rdb(cuda_device, dtype, nf, gc, False, seed=6)
+    g = torch.Generator().manual_seed(7)
+    src = torch.randn(1, 21, 75, nf + 4 * gc, generator=g).to(cuda_device, dtype)
+    out_ws = torch.randn(1, 21, 75, nf + 4 * gc, generator=g).to(cuda_device, dtype)
+    ref = rdb_padded_reference(src.clone(), ws, bs, out_ws.clone(), res=out_ws.clone())
+    fused_rdb_padded(src, ws, bs, out_ws, res=out_ws)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 0.05
+    assert (out_ws[..., :nf].float() - ref[..., :nf].float()).abs().max().item() < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cin,cout", [((1, 548, 256), 64, 64), ((1, 548, 256), 64, 3),
+                                            ((2, 137, 64), 64, 64), ((1, 64, 96), 3, 64)])
+def test_bf16_conv_bias_route_matches_true_fp32_on_card(cuda_device, shape, cin, cout):
+    """nn/functional's bf16 conv runs cuDNN in fp32 with TF32 allowed on
+    bf16-valued operands (exact products), adds the fp32 bias, rounds once.
+    It must give the true-fp32 route's bf16 values in >= 99.9% of outputs
+    at the ESRGAN tail's shapes (4x tiles 548x256, 2x 137x64): a Winograd
+    or FFT algorithm would not."""
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(*shape, cin, generator=g).to(cuda_device, torch.bfloat16)
+    w = (torch.randn(cout, cin, 3, 3, generator=g) / math.sqrt(9 * cin)).to(cuda_device)
+    b = (torch.randn(cout, generator=g) * 0.5).to(cuda_device)
+    out = F.conv2d(x, w, b, padding=1)
+    with true_fp32(torch.float32):
+        ref = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2).float(),
+                                         w.to(torch.bfloat16).float(), b, padding=1)
+    ref = ref.to(torch.bfloat16).permute(0, 2, 3, 1)
+    assert out.dtype == torch.bfloat16
+    assert (out == ref).float().mean().item() >= 0.999
 
 
 def _cyclegan_state(g, n_blocks=2, ngf=8):

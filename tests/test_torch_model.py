@@ -71,12 +71,12 @@ def test_bf16_trunk_rounds_like_the_jax_package(nb):
     a Python 0.2 multiplies by fp32 0.2f and changes the rounding of about
     15% of a 1-RRDB trunk's outputs (23% at 2 RRDBs).
 
-    Remaining difference: the biases are made bf16-representable, because
-    the port's conv rounds its bias to bf16 (cuDNN takes a bias of the
-    activation dtype) while the JAX package adds it in fp32; what is left
-    is the two frameworks' CPU conv summation order flipping a rare bf16
-    rounding, which the next convs spread (0.03% of values at nb=1, 0.4%
-    at nb=2, each at most one bf16 ulp)."""
+    The biases are made bf16-representable so that this test isolates the
+    0.2 scales from the conv bias (held on its own, with fp32 biases, by
+    tests/test_torch_functional.py); what is left is the two frameworks'
+    CPU conv summation order flipping a rare bf16 rounding, which the next
+    convs spread (0.03% of values at nb=1, 0.4% at nb=2, each at most one
+    bf16 ulp)."""
     spec = {"type": "esrgan", "nb": nb, "nf": 32, "gc": 16}
     state = SP.esrgan_state(nb=nb, nf=32, gc=16, scale=4, seed=5)
     # bf16-representable biases: no rounding when the port casts them

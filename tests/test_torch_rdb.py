@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from innfer_tpu.models.rrdb import _rdb5c as jax_rdb5c
 from innfer_tpu.ops.pallas.rdb import fused_rdb as jax_fused_rdb
+from innfer_tpu_torch.ops.conv3x3 import n_tile, pack_conv3x3, packed_elems
 from innfer_tpu_torch.ops.rdb import fused_rdb, pack_rdb, rdb_reference
 
 
@@ -103,10 +104,25 @@ def test_reference_bf16_close(plus):
     assert np.abs(out - fp32.numpy()).max() < 0.05
 
 
+def read_packed(flat, cin, cout):
+    """An OIHW fp32 weight read back from the packed layout at the offsets
+    conv3x3_tc.cuh::packed_index computes:
+    ((((g * chunks + c / 16) * 9 + tap) * 2 + (c % 16) / 8) * nt + n) * 8 + c % 8
+    with nt the N tile of cout, g = co / nt and n = co % nt."""
+    nt = next(n for n in (8, 16, 32, 64, 128, 256, 10 ** 9) if n >= min(cout, 256))
+    chunks = -(-cin // 16)
+    co, c, tap = np.meshgrid(np.arange(cout), np.arange(cin), np.arange(9), indexing="ij")
+    idx = (((((co // nt) * chunks + c // 16) * 9 + tap) * 2 + (c % 16) // 8) * nt
+           + co % nt) * 8 + c % 8
+    assert idx.max() < flat.numel()
+    return flat.float()[torch.from_numpy(idx)].reshape(cout, cin, 3, 3)
+
+
 def _emulate_kernel(x, packed, nf, gc, plus):
     """The CUDA host function's split of the work, in PyTorch: the NHWC
-    workspace [x|x1..x4], five convs reading the packed [cin][9][cout]
-    weights at the C code's offsets, and its four epilogues."""
+    workspace [x|x1..x4], five convs reading the packed weights at the C
+    code's offsets (conv c's block starts where conv c-1's padded block
+    ends), and its four epilogues."""
     dt = x.dtype
     rnd = lambda t: t.to(dt).float()  # noqa: E731
     b_, h, w, _ = x.shape
@@ -115,7 +131,9 @@ def _emulate_kernel(x, packed, nf, gc, plus):
     woff = boff = 0
     for c in range(1, 6):
         cin, cout = nf + (c - 1) * gc, (gc if c < 5 else nf)
-        wc = packed.w[woff: woff + cin * 9 * cout].float().reshape(cin, 3, 3, cout)
+        nt = next(n for n in (8, 16, 32, 64, 128, 256) if n >= min(cout, 256))
+        size = -(-cout // nt) * -(-cin // 16) * 9 * 16 * nt
+        wc = read_packed(packed.w[woff: woff + size], cin, cout).permute(1, 2, 3, 0)
         xp = TF.pad(ws[..., :cin], (0, 0, 1, 1, 1, 1))
         acc = sum(xp[:, ky: ky + h, kx: kx + w, :] @ wc[:, ky, kx, :]
                   for ky in range(3) for kx in range(3))
@@ -129,17 +147,18 @@ def _emulate_kernel(x, packed, nf, gc, plus):
         if plus and c == 4:
             v = v + ws[..., nf + gc: nf + 2 * gc]
         ws[..., nf + (c - 1) * gc: nf + c * gc] = rnd(v)
-        woff += cin * 9 * cout
+        woff += size
         boff += cout
     return out
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("plus", [False, True])
-def test_packed_layout_emulation_matches_reference(dtype, plus):
+@pytest.mark.parametrize("nf_gc", [(32, 16), (24, 8)])
+def test_packed_layout_emulation_matches_reference(dtype, plus, nf_gc):
     """The kernel's packed weights and channel offsets, emulated on the CPU,
-    compute the plain version's function."""
-    nf, gc = 32, 16
+    compute the plain version's function; (24, 8) pads cin and cout."""
+    nf, gc = nf_gc
     ws, bs, w1 = _make_rdb(7, nf, gc, plus)
     tw, tb, t1 = _torch_params(ws, bs, w1)
     tw = [v.to(dtype) for v in tw]
@@ -148,6 +167,8 @@ def test_packed_layout_emulation_matches_reference(dtype, plus):
         (2, 20, 24, nf)).astype(np.float32)).to(dtype)
     packed = pack_rdb(tw, tb, t1, dtype)
     assert packed.w.dtype == dtype and packed.b.dtype == torch.float32
+    assert packed.w.numel() == sum(packed_elems(nf + c * gc, gc if c < 4 else nf)
+                                   for c in range(5))
     emu = _emulate_kernel(x, packed, nf, gc, plus).float()
     ref = rdb_reference(x, tw, tb, plus=plus, conv1x1_w=t1).float()
     tol = 2e-5 if dtype == torch.float32 else 0.05
@@ -184,3 +205,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     tw12, tb12, _ = _torch_params(ws12, bs12, None)
     with pytest.raises(ValueError, match="nf % 8"):
         fused_rdb(torch.zeros(1, 8, 8, 12), tw12, tb12)
+
+
+@pytest.mark.parametrize("cout,nt", [(8, 8), (24, 32), (32, 32), (64, 64), (96, 128),
+                                     (256, 256), (320, 256)])
+def test_n_tile_and_packed_size(cout, nt):
+    """N tiles are wgmma widths; cout above 256 spans several tiles, and the
+    padded channels of the packed weights are zeros."""
+    assert n_tile(cout) == nt
+    w = torch.randn(cout, 40, 3, 3)
+    flat = pack_conv3x3(w, torch.float32)
+    assert flat.numel() == packed_elems(40, cout) == -(-cout // nt) * nt * 48 * 9
+    assert torch.equal(read_packed(flat, 40, cout), w)
+    assert flat.abs().sum().item() == pytest.approx(w.abs().sum().item(), rel=1e-5)

@@ -25,6 +25,7 @@ import cv2
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as TF
 
 import jax.numpy as jnp
 
@@ -39,11 +40,13 @@ from innfer_tpu_torch.config.defaults import get_network_config
 from innfer_tpu_torch.loader import load_model_from_state
 from innfer_tpu_torch.models import convert_state, get_network, params_from_jax
 from innfer_tpu_torch.nn import functional as F
-from innfer_tpu_torch.ops.resnet_block import (fused_resnet_block,
+from innfer_tpu_torch.ops.conv3x3 import n_tile
+from innfer_tpu_torch.ops.resnet_block import (fused_resnet_block, pack_resnet_block,
                                                resnet_block_ok,
                                                resnet_block_reference)
 from innfer_tpu_torch.pipeline import InferenceSession, select_presets
 from test_pallas_resnet_block import xla_block
+from test_torch_rdb import read_packed
 from tools import synth_params as SP
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
@@ -132,6 +135,81 @@ def test_wrapper_on_cpu_takes_the_plain_version_and_checks_its_gate():
         assert not resnet_block_ok(tuple(bad.shape), bad.dtype)
         with pytest.raises(ValueError, match="H, W >= 2"):
             fused_resnet_block(bad.contiguous(), w1, b1, w2, b2)
+
+
+def _chan(n, mu, m2, nb, mb, m2b):
+    nab = n + nb
+    d = mb - mu
+    return nab, mu + d * (nb / nab), m2 + m2b + d * d * (n * nb / nab)
+
+
+def _tile_stats(acc, th, lanes=8):
+    """conv3x3_tc.cuh's statistics and resnet_block.cu's in_merge: per tile
+    of th rows x 64 columns (tiles numbered row-major) the count, mean and
+    centred M2 of each channel; lane l merges tiles l, l + lanes, ... with
+    Chan's formula, then the lanes are merged in lane order."""
+    b_, h, w, c = acc.shape
+    tiles = []
+    for y0 in range(0, h, th):
+        for x0 in range(0, w, 64):
+            t = acc[:, y0:y0 + th, x0:x0 + 64].reshape(b_, -1, c)
+            mb = t.sum(1) / t.shape[1]
+            tiles.append((float(t.shape[1]), mb, (t - mb[:, None]).square().sum(1)))
+    parts = []
+    for lane in range(lanes):
+        n, mu, m2 = 0.0, torch.zeros(b_, c), torch.zeros(b_, c)
+        for nb, mb, m2b in tiles[lane::lanes]:
+            n, mu, m2 = _chan(n, mu, m2, nb, mb, m2b)
+        parts.append((n, mu, m2))
+    n, mu, m2 = parts[0]
+    for part in parts[1:]:
+        if part[0] > 0:
+            n, mu, m2 = _chan(n, mu, m2, *part)
+    return mu, m2 / n
+
+
+def _emulate_block(x, packed, eps=1e-5):
+    """The CUDA host function's split of the work, in PyTorch: reflect
+    conv reading the packed weights at the C code's offsets, the fp32
+    pre-norm sum, tile statistics merged as the bf16 path merges them,
+    normalize + ReLU into h1, the second conv, normalize + residual."""
+    dt = x.dtype
+    b_, h, w, c = x.shape
+    th = 2 * {256: 1, 128: 2, 64: 2}.get(n_tile(c), 4)
+
+    def conv_in(t, wp, bias):
+        wc = read_packed(wp, c, c).permute(2, 3, 1, 0)  # (ky, kx, cin, cout)
+        tp = TF.pad(t.float().permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").permute(0, 2, 3, 1)
+        acc = sum(tp[:, ky: ky + h, kx: kx + w, :] @ wc[ky, kx]
+                  for ky in range(3) for kx in range(3)) + bias
+        mean, var = _tile_stats(acc, th)
+        return (acc - mean[:, None, None]) * torch.rsqrt(var + eps)[:, None, None]
+
+    h1 = torch.relu(conv_in(x, packed.w1, packed.b1)).to(dt)
+    h2 = conv_in(h1, packed.w2, packed.b2).to(dt)
+    return (x.float() + h2.float()).to(dt)
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 70, 32), (1, 5, 7, 256), (1, 6, 66, 64),
+                                   (1, 40, 130, 32)])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_packed_layout_emulation_matches_reference(shape, dtype):
+    """pack_resnet_block's layout read at the C code's offsets, and the
+    tile statistics merged with Chan's formula, compute the plain
+    version's function: fp32 atol 1e-4, bf16 at the ulp bar (module
+    docstring).  The shapes cut ragged row and column tiles."""
+    tdt = torch.float32 if dtype == "fp32" else torch.bfloat16
+    w1, b1, w2, b2 = (torch.from_numpy(a) for a in _block_params(shape[-1], seed=7))
+    w1, w2 = w1.permute(3, 2, 0, 1).contiguous(), w2.permute(3, 2, 0, 1).contiguous()
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(shape).astype(np.float32)).to(tdt)
+    packed = pack_resnet_block(w1, b1, w2, b2, tdt)
+    emu = _emulate_block(x, packed).float()
+    ref = resnet_block_reference(x, w1, b1, w2, b2).float()
+    if dtype == "fp32":
+        assert (emu - ref).abs().max().item() < 1e-4
+    else:
+        bar = 2.0 ** -7 * (ref.abs() + (ref - x.float()).abs() + 1)
+        assert ((emu - ref).abs() <= bar).all()
 
 
 # --- the model ---------------------------------------------------------------
