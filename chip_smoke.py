@@ -28,7 +28,9 @@ the final result line):
               PNGs, run through InferenceSession.process in bf16 with
               tile_mode="auto" (auto-detection, auto -> hybrid): exactly
               69 fused_rdb launches per image, 4x PNGs read back, and the
-              same images through backend="torch" at >= 40 dB;
+              same images through backend="torch" at >= 40 dB, with the
+              kernel run's tiling asked for (tile_mode="hybrid": a trunk
+              of plain ops keeps the auto grid);
   5. chain    at the main-path shape (1, 1088, 1920, 64) bf16: one
               fused_rdb_padded call (with the RRDB residual) against its
               plain version; the nb=23 fused_rrdb_trunk (69 chain-mode
@@ -57,13 +59,33 @@ the final result line):
               tile_mode="auto": 9 fused_resnet_block launches per tile
               group, 1x PNGs, >= 40 dB against backend="torch", and fp32
               kernel path vs torch path >= 80 dB on a small input;
-  8. result   the kernels line (each kernel also with "tflops", its
+  8. zoo      seeded synthetic SRResNet 4x (nf=64, nb=16, pixelshuffle,
+              relu, CNA), PAN 4x (nf=40, unf=24, nb=16, self-attention)
+              and PPON 4x (nf=64, nb=24) state dicts, the reference
+              defaults, through InferenceSession.process with
+              auto-detection, tile_mode="auto", on the main path's PNGs:
+              the runner's mode (SRResNet must not go hybrid), ms per
+              image between CUDA events, wall, u8 PSNR of bf16 against the
+              fp32 session (>= 30 dB) and fp32 on the card against fp32
+              on the CPU on a 64x64 crop (>= 80 dB), no kernel launched;
+              for PAN the auto plan's tile and the attention scores' bytes
+              per tile group.  Then the ESRGAN variants (batch norm CNA and
+              NAC, instance norm, prelu, swish; nf=64, gc=32, nb=2) fp32
+              card vs CPU at >= 80 dB with 0 fused_rdb launches; an
+              instance-norm ESRGAN's runner in auto mode stays on the tile
+              grid, while the main path's leakyrelu ESRGAN went hybrid;
+  9. ts       a TorchScript archive traced from a 4x SRResNet nn.Module
+              (nf=64, nb=16) defined here, through InferenceSession with
+              arch "ts" on the card: probed scale 4, the tiled output
+              against the eager module's whole-image fp32 forward >= 40
+              dB (u8), the whole-image stage >= 80 dB, ms per image;
+ 10. result   the kernels line (each kernel also with "tflops", its
               achieved rate, and "bound_share", bound_ms / ms), the card
               line and, last,
               {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Each path (main, chain, cyclegan) runs with every kernel's launch count set
-to 0 just before it and read just after; launches made to compare a kernel
-with its plain version are not counted.
+Each path (main, chain, cyclegan, zoo, ts) runs with every kernel's launch
+count set to 0 just before it and read just after; launches made to
+compare a kernel with its plain version are not counted.
 """
 from __future__ import annotations
 
@@ -86,6 +108,7 @@ MIN_PSNR_DB = 40.0                # kernel path vs torch path, u8 outputs
 RB_PSNR_DB = 55.0                 # bf16 fused_resnet_block vs its plain version
 NB = 23                           # RRDBs of the main-path ESRGAN
 CG_BLOCKS, CG_NGF = 9, 64         # CycleGAN resnet_9blocks at its published width
+ZOO_BF16_DB, ZOO_FP32_DB = 30.0, 80.0   # bf16 vs fp32 session (u8); fp32 card vs CPU
 LIBS = ("rdb", "resnet_block")
 
 
@@ -391,7 +414,9 @@ def phase_main(dev, work):
     device_ms = [{k: sum(a.elapsed_time(b) for a, b in v) for k, v in im.items()}
                  for im in per_image]
 
-    ref_sess = InferenceSession(ckpt, compute_dtype=torch.bfloat16, tile_mode="auto",
+    # backend='torch' runs no kernel in its trunk, so auto would keep the
+    # tile grid: ask for the kernel run's tiling to compare the kernel alone
+    ref_sess = InferenceSession(ckpt, compute_dtype=torch.bfloat16, tile_mode="hybrid",
                                 backend="torch")
     ref_dir = os.path.join(work, "out_torch")
     t0 = time.perf_counter()
@@ -415,8 +440,8 @@ def phase_main(dev, work):
                       for n, t in zip(sizes, device_ms))
     print(f"[main] {len(sizes)} images in bf16, mode {runner.last_mode}: fused_rdb "
           f"launches {launches} (69 per image); wall {wall:.3f} s for both "
-          f"(backend='torch' {ref_wall:.3f} s); CUDA events: {times}; PSNR vs "
-          f"backend='torch' {', '.join(f'{d:.1f}' for d in dbs)} dB", flush=True)
+          f"(backend='torch', tile_mode='hybrid' {ref_wall:.3f} s); CUDA events: {times}; "
+          f"PSNR vs backend='torch' {', '.join(f'{d:.1f}' for d in dbs)} dB", flush=True)
     if min(dbs) < MIN_PSNR_DB:
         fail(f"kernel path vs torch path PSNR {min(dbs):.1f} dB < {MIN_PSNR_DB}")
 
@@ -433,7 +458,7 @@ def phase_main(dev, work):
     if db32 < 80.0 or not torch.isfinite(a).all():
         fail(f"fp32 kernel path vs torch path PSNR {db32:.1f} dB < 80")
     return {"launches": launches, "ckpt": ckpt, "in_dir": in_dir, "out_dir": out_dir,
-            "n_images": len(sizes)}
+            "n_images": len(sizes), "sizes": sizes, "mode": runner.last_mode}
 
 
 def trunk_params(torch, dev, dtype, seed):
@@ -720,20 +745,20 @@ def synth_cyclegan_state(torch, seed, n_blocks=CG_BLOCKS, ngf=CG_NGF):
     return state
 
 
-def time_images(torch, sess) -> list:
-    """Wrap the session's tiled runner with CUDA events; returns the list
-    that gets one (start, end) pair per image."""
-    runner, events = sess.stage.runner, []
+def time_stage(torch, sess) -> list:
+    """Wrap the session's stage with CUDA events; returns the list that
+    gets one (start, end) pair per image."""
+    stage, events = sess.stage, []
 
-    def timed(params, x):
+    def timed(x):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        out = runner(params, x)
+        out = stage(x)
         e1.record()
         events.append((e0, e1))
         return out
 
-    sess.stage.runner = timed
+    sess.stage = timed
     return events
 
 
@@ -762,13 +787,13 @@ def phase_cyclegan(dev, work):
         fail(f"the session built {cfg} with ngf {params['model.1.weight'].shape[0]}")
     if presets.strict or any("running_" in k for k in params):
         fail("the cyclegan preset did not drop the legacy InstanceNorm keys")
-    runner = sess.stage.runner
+    model, runner = sess.stage.model, sess.stage.runner
     groups = {}
     for name, (h, w) in sizes.items():
         plan = runner.plan_for(h, w, on_cuda=True)
         chunk = plan.chunk or min(runner.tile_batch, plan.n_tiles)
         groups[name] = (-(-plan.n_tiles // chunk), plan.tile_h, plan.tile_w, plan.n_tiles, chunk)
-    events = time_images(torch, sess)
+    events = time_stage(torch, sess)
     blocks = []  # (image index, CUDA events) of each fused_resnet_block call
 
     def timed_block(*args, **kw):
@@ -802,7 +827,8 @@ def phase_cyclegan(dev, work):
     block_ms = [sum(a.elapsed_time(b) for i, a, b in blocks if i == k) for k in range(len(sizes))]
 
     ref_sess = InferenceSession(ckpt, backend="torch", **kw)
-    ref_events = time_images(torch, ref_sess)
+    ref_model = ref_sess.stage.model
+    ref_events = time_stage(torch, ref_sess)
     ref_dir = os.path.join(work, "cg_out_torch")
     t0 = time.perf_counter()
     ref_sess.process(in_dir, ref_dir, verbose=False)
@@ -837,14 +863,364 @@ def phase_cyclegan(dev, work):
     # fp32 on a small input: the kernel path is true fp32 end to end
     small = (torch.rand(1, 64, 96, 3, generator=torch.Generator().manual_seed(42)) * 2 - 1).to(dev)
     p32 = {k: v.float() for k, v in params.items()}
-    a = sess.stage.model.apply(p32, small)
-    b = ref_sess.stage.model.apply(p32, small)
+    a = model.apply(p32, small)
+    b = ref_model.apply(p32, small)
     db32 = psnr(a.cpu(), b.cpu(), 1.0)
     print(f"[cyclegan] fp32 (1,64,96,3): kernel path vs torch path PSNR {db32:.1f} dB (bar 80)",
           flush=True)
     if db32 < 80.0 or not torch.isfinite(a).all():
         fail(f"fp32 CycleGAN kernel path vs torch path PSNR {db32:.1f} dB < 80")
     return counts["fused_resnet_block"]
+
+
+class SynthState:
+    """Seeded random-init tensors in a reference key layout: a copy of
+    tools/synth_params.py's _Maker, in torch (convs uniform with variance
+    1/(3 fan_in), biases and scalars small)."""
+
+    def __init__(self, torch, seed):
+        self.torch, self.g, self.state = torch, torch.Generator().manual_seed(seed), {}
+
+    def _uniform(self, shape, bound):
+        return (self.torch.rand(*shape, generator=self.g) * 2 - 1) * bound
+
+    def conv(self, key, o, i, k=3, bias=True, dims=2):
+        shape = (o, i) + (k,) * dims
+        self.state[f"{key}.weight"] = self._uniform(shape, 1.0 / math.sqrt(i * k ** dims))
+        if bias:
+            self.state[f"{key}.bias"] = self._uniform((o,), 0.01)
+
+    def conv1d(self, key, o, i):
+        self.conv(key, o, i, k=1, dims=1)
+
+    def batch_norm(self, key, c):
+        self.state[f"{key}.weight"] = 1 + self._uniform((c,), 0.1)
+        self.state[f"{key}.bias"] = self._uniform((c,), 0.1)
+        self.state[f"{key}.running_mean"] = self._uniform((c,), 0.1)
+        self.state[f"{key}.running_var"] = 1 + self._uniform((c,), 0.1)
+
+    def scalar(self, key, v):
+        self.state[key] = self.torch.full((1,), v)
+
+
+def synth_srresnet_state(torch, seed, nb=16, nf=64):
+    """tools/synth_params.py's srresnet_state at 4x: CNA, relu, no norm,
+    pixelshuffle (the reference sr_resnet defaults)."""
+    m = SynthState(torch, seed)
+    m.conv("model.0", nf, 3)
+    for i in range(nb):
+        m.conv(f"model.1.sub.{i}.res.0", nf, nf)
+        m.conv(f"model.1.sub.{i}.res.2", nf, nf)
+    m.conv(f"model.1.sub.{nb}", nf, nf)
+    for idx in (2, 5):
+        m.conv(f"model.{idx}", nf * 4, nf)  # pixelshuffle conv
+    m.conv("model.8", nf, nf)
+    m.conv("model.10", 3, nf)
+    return m.state
+
+
+def synth_ppon_state(torch, seed, nb=24, nf=64):
+    """tools/synth_params.py's ppon_state at 4x."""
+    m = SynthState(torch, seed)
+
+    def rrblock(prefix):
+        for rb in ("RB1", "RB2", "RB3"):
+            m.conv(f"{prefix}.{rb}.c1", nf, nf)
+            for r in range(1, 9):
+                m.conv(f"{prefix}.{rb}.d{r}", nf // 2, nf)
+            m.conv(f"{prefix}.{rb}.c2", nf, nf * 4, k=1)
+
+    m.conv("CFEM.0", nf, 3)
+    for i in range(nb):
+        rrblock(f"CFEM.1.sub.{i}")
+    m.conv(f"CFEM.1.sub.{nb}", nf, nf)
+    for i in range(2):
+        rrblock(f"SFEM.{i}")
+        rrblock(f"PFEM.{i}")
+    for mod in ("CRM", "SRM", "PRM"):
+        for u in range(2):
+            m.conv(f"{mod}.{3 * u + 1}", nf, nf)
+        m.conv(f"{mod}.6", nf, nf)
+        m.conv(f"{mod}.8", 3, nf)
+    return m.state
+
+
+def synth_pan_state(torch, seed, nb=16, nf=40, unf=24):
+    """tools/synth_params.py's pan_state at 4x with self-attention."""
+    m = SynthState(torch, seed)
+    m.conv("conv_first", nf, 3)
+    gw = nf // 2
+    for i in range(nb):
+        p = f"SCPA_trunk.{i}"
+        m.conv(f"{p}.conv1_a", gw, nf, k=1, bias=False)
+        m.conv(f"{p}.conv1_b", gw, nf, k=1, bias=False)
+        m.conv(f"{p}.k1.0", gw, gw, bias=False)
+        m.conv(f"{p}.PACnv.k2", gw, gw, k=1)
+        m.conv(f"{p}.PACnv.k3", gw, gw, bias=False)
+        m.conv(f"{p}.PACnv.k4", gw, gw, bias=False)
+        m.conv(f"{p}.conv3", nf, nf, k=1, bias=False)
+    m.conv("trunk_conv", nf, nf)
+    m.conv1d("FSA.conv_f", nf // 8, nf)
+    m.conv1d("FSA.conv_g", nf // 8, nf)
+    m.conv1d("FSA.conv_h", nf, nf)
+    m.scalar("FSA.gamma", 0.1)
+    cin = nf
+    for u in range(2):  # 4x: two pa_upconv blocks of 5 modules
+        m.conv(f"upsample.{5 * u + 1}", unf, cin)
+        m.conv(f"upsample.{5 * u + 2}.conv", unf, unf, k=1)
+        m.conv(f"upsample.{5 * u + 4}", unf, unf)
+        cin = unf
+    m.conv("conv_last", 3, unf)
+    return m.state
+
+
+def synth_esrgan_variant_state(torch, seed, *, norm, mode, act, nb=2, nf=NF, gc=GC):
+    """A 4x ESRGAN state dict of a conv_block variant (norm layers, NAC,
+    prelu or swish), its keys laid out by the port's conv_block_layout:
+    RDB conv blocks are CNA, the LR conv block follows ``mode``, and the
+    acts of the upsample blocks and the first HR conv carry parameters."""
+    from innfer_tpu_torch.models.common import conv_block_layout
+
+    m = SynthState(torch, seed)
+
+    def act_params(key):
+        if act == "prelu":
+            m.scalar(f"{key}.weight", 0.25)
+        elif act == "swish":
+            m.state[f"{key}.beta"] = torch.tensor(1.0)
+
+    def block(key_of, o, i, block_mode, block_act):
+        for j, kind in enumerate(conv_block_layout(block_mode, norm, block_act)):
+            if kind == "conv":
+                m.conv(key_of(j), o, i)
+            elif kind == "norm" and norm == "batch":
+                m.batch_norm(key_of(j), i if block_mode == "NAC" else o)
+            elif kind == "act":
+                act_params(key_of(j))
+
+    m.conv("model.0", nf, 3)
+    for i in range(nb):
+        for j in (1, 2, 3):
+            for c in range(1, 6):
+                block(lambda k, c=c: f"model.1.sub.{i}.RDB{j}.conv{c}.{k}",
+                      gc if c < 5 else nf, nf + (c - 1) * gc, "CNA", act if c < 5 else None)
+    block(lambda k: f"model.1.sub.{nb + k}", nf, nf, mode, None)
+    for ci in (3, 6, 8):  # upconv convs and the first HR conv, each with its act
+        m.conv(f"model.{ci}", nf, nf)
+        act_params(f"model.{ci + 1}")
+    m.conv("model.10", 3, nf)
+    return m.state
+
+
+def run_session(torch, sess, in_dir, out_dir):
+    """Process a directory with the launch counts set to 0 just before;
+    returns (written paths, wall s, CUDA-event ms per image, counts)."""
+    events = time_stage(torch, sess)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = sess.process(in_dir, out_dir, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return sorted(written), wall, [a.elapsed_time(b) for a, b in events], read_counts()
+
+
+def card_vs_cpu_db(torch, model, params, x):
+    """fp32 on the card against fp32 on the CPU, PSNR (peak max(1, |ref|));
+    fails if the card's forward launched a kernel."""
+    p_cpu = {k: v.float().cpu() for k, v in params.items()}
+    p_dev = {k: v.float() for k, v in params.items()}
+    pick = (lambda o: o) if model.output_index is None else (lambda o: o[model.output_index])
+    reset_counts()
+    a = pick(model.apply(p_dev, x.float())).cpu()
+    if any(read_counts().values()):
+        fail(f"{model.name} launched a kernel: {read_counts()}")
+    b = pick(model.apply(p_cpu, x.float().cpu()))
+    if not torch.isfinite(a).all():
+        fail(f"{model.name}: non-finite fp32 output on the card")
+    return psnr(a, b, max(1.0, b.abs().max().item()))
+
+
+def phase_zoo(dev, work, main):
+    """SRResNet, PAN and PPON through the session; the ESRGAN variants
+    card vs CPU; the auto -> hybrid gate."""
+    import numpy as np
+    import torch
+
+    from innfer_tpu_torch.config.defaults import get_network_config
+    from innfer_tpu_torch.io import images as iio
+    from innfer_tpu_torch.models import convert_state, get_network
+    from innfer_tpu_torch.pipeline import InferenceSession, np2tensor
+    from innfer_tpu_torch.tiling.engine import TiledRunner
+
+    zoo = {"srresnet": (synth_srresnet_state, "sr_resnet", {"nf": 64, "nb": 16}),
+           "pan": (synth_pan_state, "pan_net", {"nf": 40, "unf": 24, "nb": 16,
+                                                "self_attention": True}),
+           "ppon": (synth_ppon_state, "ppon", {"nf": 64, "nb": 24})}
+    crop = iio.read_img(sorted(os.path.join(main["in_dir"], f)
+                               for f in os.listdir(main["in_dir"]))[0])[:64, :64]
+    rows = {}
+    for i, (name, (make, kind, want)) in enumerate(zoo.items()):
+        ckpt = os.path.join(work, f"4x_synth_{name}.pth")
+        torch.save(make(torch, seed=50 + i), ckpt)
+        sess = InferenceSession(ckpt, compute_dtype=torch.bfloat16, tile_mode="auto")
+        model, runner = sess.stage.model, sess.stage.runner
+        got = {k: model.cfg.get(k) for k in want}
+        if model.name != kind or got != want or model.scale != 4:
+            fail(f"auto-detection read the {name} checkpoint as {model.name} {model.cfg}")
+        plans = {n: runner.plan_for(h, w, on_cuda=True) for n, (h, w) in main["sizes"].items()}
+        out16, out32 = (os.path.join(work, f"zoo_{name}_{t}") for t in ("bf16", "fp32"))
+        written, wall, ms, counts = run_session(torch, sess, main["in_dir"], out16)
+        mode = runner.last_mode
+        if any(counts.values()):
+            fail(f"{name} launched a kernel: {counts}")
+        if name == "srresnet" and mode == "hybrid":
+            fail("SRResNet's auto run went hybrid: its trunk runs no port kernel")
+        sess32 = InferenceSession(ckpt, compute_dtype=torch.float32, tile_mode="auto")
+        params32 = sess32.stage.params
+        written32, wall32, ms32, _ = run_session(torch, sess32, main["in_dir"], out32)
+        dbs = []
+        for (n, (h, w)), a, b in zip(main["sizes"].items(), written, written32):
+            out, ref = iio.read_img(a), iio.read_img(b)
+            if out is None or out.shape != (4 * h, 4 * w, 3) or out.dtype != np.uint8:
+                fail(f"{a}: expected a ({4 * h}, {4 * w}, 3) uint8 PNG")
+            if out.std() < 1.0:
+                fail(f"{a}: the output is flat (std {out.std():.3f})")
+            dbs.append(psnr(out, ref, 255.0))
+        db32 = card_vs_cpu_db(torch, model, params32,
+                              np2tensor(crop, device=dev))
+        extra = ""
+        if name == "pan":
+            parts = []
+            for n, plan in plans.items():
+                chunk = plan.chunk or min(runner.tile_batch, plan.n_tiles)
+                npx = (plan.tile_h // 4) * (plan.tile_w // 4)
+                parts.append(f"{n} {plan.n_tiles} tiles of {plan.tile_h}x{plan.tile_w}, chunk "
+                             f"{chunk}, attention scores {chunk * npx * npx * 4 / 1e9:.2f} GB "
+                             f"fp32 per tile group")
+            extra = "; auto plan: " + "; ".join(parts)
+        print(f"[zoo] {name} 4x {want}: mode {mode}; bf16 CUDA events per image "
+              f"{', '.join(f'{n} {t:.1f} ms' for n, t in zip(main['sizes'], ms))}, wall "
+              f"{wall:.3f} s for both; fp32 {', '.join(f'{t:.1f}' for t in ms32)} ms, wall "
+              f"{wall32:.3f} s; bf16 vs fp32 u8 PSNR {', '.join(f'{d:.1f}' for d in dbs)} dB "
+              f"(bar {ZOO_BF16_DB}); fp32 card vs CPU (1,64,64,3) {db32:.1f} dB "
+              f"(bar {ZOO_FP32_DB}); kernel launches 0{extra}", flush=True)
+        if min(dbs) < ZOO_BF16_DB:
+            fail(f"{name}: bf16 vs fp32 PSNR {min(dbs):.1f} dB < {ZOO_BF16_DB}")
+        if db32 < ZOO_FP32_DB:
+            fail(f"{name}: fp32 card vs CPU PSNR {db32:.1f} dB < {ZOO_FP32_DB}")
+        rows[name] = {"mode": mode, "ms": ms, "wall": wall, "ms32": ms32, "dbs": dbs,
+                      "db32": db32}
+
+    x = np2tensor(crop, device=dev)
+    variants = {"bn": ("batch", "CNA", "leakyrelu"), "nac_bn": ("batch", "NAC", "leakyrelu"),
+                "in": ("instance", "CNA", "leakyrelu"), "prelu": (None, "CNA", "prelu"),
+                "swish": (None, "CNA", "swish")}
+    dbs = {}
+    for i, (label, (norm, mode, act)) in enumerate(variants.items()):
+        cfg = get_network_config({"type": "esrgan", "nb": 2, "nf": NF, "gc": GC,
+                                  "norm_type": norm, "mode": mode, "act_type": act}, 4)
+        model = get_network(cfg)
+        state = synth_esrgan_variant_state(torch, 60 + i, norm=norm, mode=mode, act=act)
+        dbs[label] = card_vs_cpu_db(torch, model, convert_state(model, state, device=dev), x)
+    print(f"[zoo] ESRGAN variants nb=2 nf={NF} gc={GC}, fp32 card vs CPU on (1,64,64,3), "
+          f"0 fused_rdb launches: {', '.join(f'{k} {d:.1f} dB' for k, d in dbs.items())} "
+          f"(bar {ZOO_FP32_DB})", flush=True)
+    if min(dbs.values()) < ZOO_FP32_DB:
+        fail(f"an ESRGAN variant's fp32 card vs CPU PSNR is below {ZOO_FP32_DB}: {dbs}")
+
+    # the auto -> hybrid gate, with the session's runner arguments: an
+    # instance-norm trunk keeps the tile grid (and per-tile statistics)
+    model = get_network(get_network_config({"type": "esrgan", "nb": 2, "norm_type": "instance"}, 4))
+    runner = TiledRunner(model.apply, model.scale, mode="auto", trunk_fn=model.apply_trunk,
+                         tail_fn=model.apply_tail, tail_halo=model.tail_halo,
+                         trunk_kernel=model.trunk_kernel)
+    img = next(iter(main["sizes"].values()))
+    in_mode = runner.mode_for(*img, on_cuda=True)
+    print(f"[zoo] auto -> hybrid gate on the card: instance-norm ESRGAN {in_mode}, "
+          f"SRResNet {rows['srresnet']['mode']}, the main path's leakyrelu ESRGAN "
+          f"{main['mode']}", flush=True)
+    if in_mode != "auto" or main["mode"] != "hybrid":
+        fail("the auto -> hybrid gate took the wrong mode")
+    return rows
+
+
+def ts_srresnet(torch, nf=64, nb=16):
+    """A 4x SRResNet (pixelshuffle, relu) as a plain nn.Module, for the
+    TorchScript phase."""
+    nn = torch.nn
+
+    class ResBlock(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.c0 = nn.Conv2d(nf, nf, 3, padding=1)
+            self.c1 = nn.Conv2d(nf, nf, 3, padding=1)
+
+        def forward(self, x):
+            return x + self.c1(torch.relu(self.c0(x)))
+
+    class SRResNet(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.head = nn.Conv2d(3, nf, 3, padding=1)
+            self.body = nn.Sequential(*[ResBlock() for _ in range(nb)],
+                                      nn.Conv2d(nf, nf, 3, padding=1))
+            self.tail = nn.Sequential(
+                nn.Conv2d(nf, 4 * nf, 3, padding=1), nn.PixelShuffle(2), nn.ReLU(),
+                nn.Conv2d(nf, 4 * nf, 3, padding=1), nn.PixelShuffle(2), nn.ReLU(),
+                nn.Conv2d(nf, nf, 3, padding=1), nn.ReLU(), nn.Conv2d(nf, 3, 3, padding=1))
+
+        def forward(self, x):
+            fea = self.head(x)
+            return self.tail(fea + self.body(fea))
+
+    return SRResNet().eval()
+
+
+def phase_ts(dev, work, main):
+    """A TorchScript archive through the session (arch 'ts') on the card."""
+    import numpy as np
+    import torch
+
+    from innfer_tpu_torch.io import images as iio
+    from innfer_tpu_torch.nn.functional import true_fp32
+    from innfer_tpu_torch.pipeline import InferenceSession, np2tensor, select_presets
+
+    torch.manual_seed(70)
+    module = ts_srresnet(torch).to(dev)
+    path = os.path.join(work, "4x_srresnet_ts.pt")
+    torch.jit.trace(module, torch.rand(1, 3, 32, 32, device=dev)).save(path)
+    in_dir = os.path.join(work, "ts_in")
+    os.makedirs(in_dir)
+    name, (h, w) = next(iter(main["sizes"].items()))
+    src = os.path.join(main["in_dir"], f"{name}.png")
+    os.symlink(src, os.path.join(in_dir, f"{name}.png"))
+    sess = InferenceSession(path, arch="ts", tile_mode="auto")
+    stage = sess.stage
+    if stage.model.scale != 4 or sess.compute_dtype != torch.float32:
+        fail(f"TorchScript stage probed scale {stage.model.scale}, compute {sess.compute_dtype}")
+    written, wall, ms, counts = run_session(torch, sess, in_dir, os.path.join(work, "ts_out"))
+    if any(counts.values()):
+        fail(f"the TorchScript path launched a kernel: {counts}")
+    x = np2tensor(iio.read_img(src), device=dev)
+    with torch.no_grad(), true_fp32(torch.float32):
+        eager = module(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    stage.chop = False
+    whole = stage(x)
+    db_whole = psnr(whole.cpu(), eager.cpu(), 1.0)
+    eager_u8 = np.round(np.clip(eager[0].cpu().numpy()[..., ::-1] * 255, 0, 255))
+    tiled = iio.read_img(written[0])
+    if tiled is None or tiled.shape != (4 * h, 4 * w, 3):
+        fail(f"the TorchScript session wrote no ({4 * h}, {4 * w}, 3) PNG")
+    db_tiled = psnr(tiled, eager_u8, 255.0)
+    print(f"[ts] traced 4x SRResNet nf=64 nb=16 through InferenceSession(arch='ts'), fp32: "
+          f"probed scale {stage.model.scale}; {name} {ms[0]:.1f} ms between CUDA events, wall "
+          f"{wall:.3f} s; tiled u8 vs the eager module's whole-image forward {db_tiled:.1f} dB "
+          f"(bar {MIN_PSNR_DB}); whole-image stage vs eager {db_whole:.1f} dB (bar 80)",
+          flush=True)
+    if db_tiled < MIN_PSNR_DB or db_whole < 80.0:
+        fail(f"TorchScript stage PSNR tiled {db_tiled:.1f} / whole {db_whole:.1f} dB")
+    return {"ms": ms[0], "wall": wall}
 
 
 def main() -> int:
@@ -864,6 +1240,8 @@ def main() -> int:
             pad, trunk = phase_chain(dev, work, main)
             rb = phase_resnet_block(dev)
             rb["launches"] = phase_cyclegan(dev, work)
+            phase_zoo(dev, work, main)
+            phase_ts(dev, work, main)
     rdb_src = "innfer_tpu_torch/ops/csrc/rdb.cu"
     kernels = [
         {"name": "fused_rdb", "route": "cuda", "source": rdb_src,

@@ -3,9 +3,9 @@ inference from state dicts.
 
 The port's own copy of ``innfer_tpu/checkpoint/detect.py`` (reference
 run.py:50-165).  Detection reads only key names and ``.shape``, so it takes
-torch tensors or numpy arrays.  Every family is fingerprinted; only the
-ESRGAN family's hyperparameters are inferred so far, and the others raise
-``NotImplementedError`` naming the slice of the port that brings them.
+torch tensors or numpy arrays.  Every family is fingerprinted; WBC's
+hyperparameters wait for its slice of the port and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,8 +20,7 @@ from innfer_tpu_torch.config.defaults import get_network_config
 StateDict = Dict[str, Any]
 
 # families fingerprinted but not yet ported, by ROADMAP.md queue-A item
-_LATER = {"srgan": "A9 (SRResNet)", "pan": "A10 (PAN)", "ppon": "A11 (PPON)",
-          "wbcunet": "A14 (WBC)"}
+_LATER = {"wbcunet": "A14 (WBC)"}
 
 
 def load_checkpoint(path: str) -> StateDict:
@@ -65,51 +64,80 @@ def fingerprint_arch(state: StateDict) -> Tuple[str, StateDict]:
     raise ValueError("Could not infer model parameters from state-dict keys.")
 
 
-def infer_params(arch: str, state: StateDict, scale: Optional[int] = None) -> Dict[str, Any]:
-    """Recover ESRGAN hyperparameters from the flattened layout:
+def infer_params(arch: str, state: StateDict, scale: Optional[int] = None,
+                 in_nc: int = 3, out_nc: int = 3) -> Dict[str, Any]:
+    """Recover hyperparameters from the state dict (run.py:103-165).
 
+    esrgan/srgan (flattened sequential layout):
       * nb    = max ``model.1.sub.<i>`` block index
       * scale = 2 ** (count of ``model.<n>.weight`` convs with n > 6)
       * out_nc from the highest-index conv, nf/in_nc from ``model.0``
       * plus  = any ``conv1x1`` key (ESRGAN+)
+    ppon and pan: nb, nf, out_nc and scale from key names and shapes (the
+    reference falls back to library defaults for these, run.py:157-163).
     """
     if arch in _LATER:
         raise NotImplementedError(
             f"{arch} checkpoints are not ported to innfer_tpu_torch yet "
             f"(ROADMAP.md queue {_LATER[arch]})")
-    if arch != "esrgan":
+    if arch in ("esrgan", "srgan"):
+        scale2x = 0
+        top_layer = 0
+        nb = None
+        plus = False
+        for key in state:
+            parts = key.split(".")
+            if len(parts) == 5 and parts[2] == "sub":
+                nb = int(parts[3])
+            elif len(parts) == 3 and parts[0] == "model" and parts[1].isdigit():
+                idx = int(parts[1])
+                if idx > 6 and parts[2] == "weight":
+                    scale2x += 1
+                if idx > top_layer:
+                    top_layer = idx
+                    out_nc = int(state[key].shape[0])
+            if arch == "esrgan" and not plus and "conv1x1" in key:
+                plus = True
+        nf = int(state["model.0.weight"].shape[0])
+        in_nc = int(state["model.0.weight"].shape[1])
+        inferred = 2 ** scale2x
+        # exact for 2^k scales; true-3x checkpoints read as 2, so an explicit
+        # or filename scale is honoured only inside that ambiguity class
+        if scale and scale != inferred and not (inferred == 2 and scale == 3):
+            print(f"Warning: requested scale {scale} contradicts the "
+                  f"checkpoint layout (inferred {inferred}); using {inferred}")
+            scale = inferred
+        scale = scale or inferred
+        net = {"type": arch, "in_nc": in_nc, "out_nc": out_nc, "nf": nf, "nb": nb}
+        if arch == "esrgan":
+            net["plus"] = plus
+    elif arch == "ppon":
+        nb = 1 + max(int(k.split(".")[3]) for k in state
+                     if k.startswith("CFEM.1.sub.") and ".RB" in k)
+        nf = int(state["CFEM.0.weight"].shape[0])
+        crm_idx = [int(k.split(".")[1]) for k in state
+                   if k.startswith("CRM.") and k.endswith(".weight")]
+        out_nc = int(state[f"CRM.{max(crm_idx)}.weight"].shape[0])
+        # 2x and 3x share the single-upsampler layout: prefer 2^n, and let
+        # an explicit or filename scale decide
+        scale = scale or 2 ** (len(crm_idx) - 2)
+        net = {"type": arch, "in_nc": int(state["CFEM.0.weight"].shape[1]),
+               "out_nc": out_nc, "nf": nf, "nb": nb}
+    elif arch == "pan":
+        nb = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("SCPA_trunk."))
+        nf = int(state["conv_first.weight"].shape[0])
+        n_up = sum(1 for k in state if k.startswith("upsample.") and k.endswith(".conv.weight"))
+        scale = scale or 2 ** n_up
+        net = {
+            "type": arch, "in_nc": int(state["conv_first.weight"].shape[1]),
+            "out_nc": int(state["conv_last.weight"].shape[0]), "nf": nf,
+            "unf": int(state["upsample.1.weight"].shape[0]) if n_up else nf, "nb": nb,
+            "self_attention": any(k.startswith("FSA.") for k in state),
+            "double_scpa": any(k.startswith("SCPA_trunk2.") for k in state),
+        }
+    else:
         raise ValueError(f"cannot infer params for arch [{arch}]")
-    scale2x = 0
-    top_layer = 0
-    out_nc = 3
-    nb = None
-    plus = False
-    for key in state:
-        parts = key.split(".")
-        if len(parts) == 5 and parts[2] == "sub":
-            nb = int(parts[3])
-        elif len(parts) == 3 and parts[0] == "model" and parts[1].isdigit():
-            idx = int(parts[1])
-            if idx > 6 and parts[2] == "weight":
-                scale2x += 1
-            if idx > top_layer:
-                top_layer = idx
-                out_nc = int(state[key].shape[0])
-        if not plus and "conv1x1" in key:
-            plus = True
-    nf = int(state["model.0.weight"].shape[0])
-    in_nc = int(state["model.0.weight"].shape[1])
-    inferred = 2 ** scale2x
-    # exact for 2^k scales; true-3x checkpoints read as 2, so an explicit
-    # or filename scale is honoured only inside that ambiguity class
-    if scale and scale != inferred and not (inferred == 2 and scale == 3):
-        print(f"Warning: requested scale {scale} contradicts the "
-              f"checkpoint layout (inferred {inferred}); using {inferred}")
-        scale = inferred
-    scale = scale or inferred
-    net = {"type": arch, "in_nc": in_nc, "out_nc": out_nc, "nf": nf,
-           "nb": nb, "plus": plus}
-    return get_network_config(net, scale)
+    return get_network_config(net, scale if scale else 1)
 
 
 def detect_and_infer(state: StateDict, scale: Optional[int] = None

@@ -4,9 +4,14 @@
         [-o ./output] [-s N] [-cpu] [-no_fp16] [--tile N] [--overlap N]
         [--tile-mode auto|uniform|hybrid|none] [--tile-batch N]
 
-Runs on the CUDA device (bf16 compute) and raises with no card unless
-``-cpu`` is given; ``-cpu`` and ``-no_fp16`` compute in fp32.  The flags
-are the JAX CLI's (innfer_tpu/cli.py) that this slice of the port supports.
+``-a infer`` (the default) detects ESRGAN/ESRGAN+/mESRGAN, SRResNet/SRGAN,
+PAN and PPON state dicts and TorchScript archives; ``-a`` also takes an
+architecture alias (esrgan, esrgan-lite, mesrgan, srgan, srresnet, pan,
+ppon, resnet_6blocks, resnet_9blocks, ...) with library defaults, and
+``-a ts`` a TorchScript archive, which runs in fp32.  Runs on the CUDA
+device (bf16 compute) and raises with no card unless ``-cpu`` is given;
+``-cpu`` and ``-no_fp16`` compute in fp32.  The flags are the JAX CLI's
+(innfer_tpu/cli.py) that this slice of the port supports.
 """
 from __future__ import annotations
 
@@ -19,7 +24,9 @@ import torch
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="innfer-tpu-torch", description=__doc__)
     p.add_argument("-models", "-m", type=str, required=True, help="Path to the model.")
-    p.add_argument("-arch", "-a", type=str, default="infer", help="Model architecture.")
+    p.add_argument("-arch", "-a", type=str, default="infer",
+                   help="Model architecture: infer (auto-detect), ts (TorchScript) "
+                   "or an alias such as esrgan, srgan, pan, ppon, resnet_9blocks.")
     p.add_argument("-input", "-i", type=str, default="./input", help="Path to read input images.")
     p.add_argument("-output", "-o", type=str, default="./output", help="Path to save output images.")
     p.add_argument("-scale", "-s", type=int, default=None, help="Model scaling factor.")

@@ -1,9 +1,10 @@
 """Network-config normalizer: alias resolution + RRDB hyperparameter defaults.
 
 The port's own copy of ``innfer_tpu/config/defaults.py`` for the families
-this port runs so far (RRDBNet, mESRGAN, CycleGAN ResNet); the reference is
-``get_network_G_config`` (utils/defaults.py:3-148).  The other families'
-aliases resolve so the model registry can name them in its error.
+this port runs so far (RRDBNet, mESRGAN, SRResNet, PPON, PAN, CycleGAN
+ResNet); the reference is ``get_network_G_config`` (utils/defaults.py:
+3-148).  The other families' aliases resolve so the model registry can
+name them in its error.
 """
 from __future__ import annotations
 
@@ -74,6 +75,43 @@ def get_network_config(network: Union[str, Dict[str, Any]], scale: int) -> Dict[
             nf=pop("nf", 64),
             nb=pop("nb", 24),
             gc=pop("gc", 32),
+        )
+    elif canon == "sr_resnet":
+        cfg.update(
+            in_nc=pop("in_nc", 3),
+            out_nc=pop("out_nc", 3),
+            nf=pop("nf", 64),
+            nb=pop("nb", 16),
+            upscale=pop("scale", scale),
+            norm_type=pop("norm_type", None),
+            act_type=pop("net_act", None) or pop("act_type", "relu"),
+            mode=pop("mode", "CNA"),
+            upsample_mode=pop("upsample_mode", "pixelshuffle"),
+            convtype=pop("convtype", "Conv2D"),
+            finalact=pop("finalact", None),
+            res_scale=pop("res_scale", 1),
+        )
+    elif canon == "ppon":
+        cfg.update(
+            in_nc=pop("in_nc", 3),
+            out_nc=pop("out_nc", 3),
+            nf=pop("nf", 64),
+            nb=pop("nb", 24),
+            upscale=pop("scale", scale),
+            act_type=pop("net_act", None) or pop("act_type", "leakyrelu"),
+            alpha=pop("alpha", 1),
+        )
+    elif canon == "pan_net":
+        cfg.update(
+            in_nc=pop("in_nc", 3),
+            out_nc=pop("out_nc", 3),
+            nf=pop("nf", 40),
+            unf=pop("unf", 24),
+            nb=pop("nb", 16),
+            scale=pop("scale", scale),
+            self_attention=pop("self_attention", True),
+            double_scpa=pop("double_scpa", False),
+            ups_inter_mode=pop("ups_inter_mode", "nearest"),
         )
     elif canon == "resnet_net":
         if kind in ("resnet_6blocks", "resnet_6", "cg_6"):

@@ -1,8 +1,9 @@
 """Architecture factory: full config dict -> ModelDef.
 
 The port's registry over the reference's types (architectures/__init__.py:
-5-40).  RRDBNet, mESRGAN and the CycleGAN ResNet run; the other families raise
-``NotImplementedError`` naming the slice of the port that brings them.
+5-40).  RRDBNet, mESRGAN, SRResNet, PPON, PAN and the CycleGAN ResNet run;
+the other families raise ``NotImplementedError`` naming the slice of the
+port that brings them.
 """
 from __future__ import annotations
 
@@ -14,9 +15,6 @@ from innfer_tpu_torch.models.base import (ModelDef, ParamDict, Params,  # noqa: 
 
 # ROADMAP.md queue-A item of each family not ported yet
 _LATER = {
-    "sr_resnet": "A9 (SRResNet)",
-    "pan_net": "A10 (PAN)",
-    "ppon": "A11 (PPON)",
     "unet_net": "A13 (pix2pix UNet)",
     "wbcunet_net": "A14 (WBC)",
 }
@@ -34,6 +32,18 @@ def get_network(cfg: Dict[str, Any]) -> ModelDef:
         from innfer_tpu_torch.models import rrdb
 
         return rrdb.build_mrrdb(cfg)
+    if kind == "sr_resnet":
+        from innfer_tpu_torch.models import srresnet
+
+        return srresnet.build(cfg)
+    if kind == "ppon":
+        from innfer_tpu_torch.models import ppon
+
+        return ppon.build(cfg)
+    if kind == "pan_net":
+        from innfer_tpu_torch.models import pan
+
+        return pan.build(cfg)
     if kind == "resnet_net":
         from innfer_tpu_torch.models import resnet
 

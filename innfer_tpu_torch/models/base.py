@@ -3,9 +3,11 @@
 The port's counterpart of ``innfer_tpu/models/base.py``.  A ModelDef is a
 plain ``apply(params, x)`` function over a flat parameter dict of tensors
 keyed by the torch names.  Conv weights stay OIHW, as in the checkpoint,
-so the JAX package's HWIO transposes have no counterpart here.  Nor has
-its ``tile_quantum``: the 64-multiple tile dims were a Mosaic constraint,
-and the port's kernel takes any tile.
+so the JAX package's HWIO transposes have no counterpart here, and a
+Conv1d weight keeps its (O, I, 1) layout.  Nor has its ``tile_quantum``
+as a tile size: the 64-multiple tile dims were a Mosaic constraint, and
+the port's kernel takes any tile.  What ``tile_quantum > 1`` also said,
+that the trunk runs a kernel, is ``trunk_kernel`` here.
 """
 from __future__ import annotations
 
@@ -61,9 +63,17 @@ class ModelDef:
     # regex patterns (fullmatch) of keys dropped under non-strict loading
     # (pre-0.4 InstanceNorm running stats in CycleGAN checkpoints)
     ignore_key_patterns: Tuple[str, ...] = ()
-    # regex patterns of ConvTranspose2d weights.  The port keeps their
-    # checkpoint layout; only params_from_jax needs to know them.
+    # regex patterns of ConvTranspose2d weights and of Conv1d-as-dense
+    # weights.  The port keeps their checkpoint layouts; only
+    # params_from_jax needs to know them.
     transposed_keys: Tuple[str, ...] = ()
+    dense_keys: Tuple[str, ...] = ()
+    # multi-output models (PPON) select this output at inference
+    output_index: Optional[int] = None
+    # True when apply_trunk runs a port kernel on a CUDA tensor (the JAX
+    # package's tile_quantum > 1): only then does TiledRunner's auto mode
+    # upgrade to hybrid on the card
+    trunk_kernel: bool = False
 
 
 def _matches(patterns: Sequence[str], key: str) -> bool:
@@ -108,13 +118,15 @@ def cast_params(params: Mapping[str, torch.Tensor], dtype: torch.dtype) -> Param
 def params_from_jax(params_np: Mapping[str, Any], model: Optional[ModelDef] = None,
                     *, device: Optional[torch.device] = None) -> ParamDict:
     """Carry the JAX package's parameters (numpy arrays, conv weights HWIO,
-    ``innfer_tpu/models/base.py:117-121``) across into port params (OIHW),
+    ``innfer_tpu/models/base.py:117-126``) across into port params (OIHW),
     so both packages compute the same function in the tests.
 
     The JAX package stores a ConvTranspose2d weight spatially flipped as
-    (kh, kw, I, O); the keys matching ``model.transposed_keys`` go back to
-    the checkpoint's (I, O, kh, kw), unflipped."""
+    (kh, kw, I, O) and a Conv1d weight as a dense (I, O): the keys matching
+    ``model.transposed_keys`` go back to the checkpoint's (I, O, kh, kw),
+    unflipped, and those matching ``model.dense_keys`` to (O, I, 1)."""
     transposed = model.transposed_keys if model is not None else ()
+    dense = model.dense_keys if model is not None else ()
     params = ParamDict()
     for key, val in params_np.items():
         t = _as_tensor(val)
@@ -122,5 +134,7 @@ def params_from_jax(params_np: Mapping[str, Any], model: Optional[ModelDef] = No
             t = t.permute(2, 3, 0, 1).flip(2, 3)  # flipped (kh,kw,I,O) -> IOHW
         elif t.dim() == 4:
             t = t.permute(3, 2, 0, 1)  # HWIO -> OIHW
+        elif t.dim() == 2 and _matches(dense, key):
+            t = t.t()[:, :, None]  # dense (I, O) -> Conv1d (O, I, 1)
         params[key] = t.to(device=device).contiguous()
     return params

@@ -1,6 +1,7 @@
-"""Shared pieces of the flattened-sequential SR skeleton (the port's subset
-of ``innfer_tpu/models/common.py``): positional indices, the upsample
-block, conv blocks and the output cap.
+"""Shared pieces of the flattened-sequential SR skeleton of RRDBNet,
+SRResNet and PPON (the port's subset of ``innfer_tpu/models/common.py``):
+positional indices, the upsample block, reference-semantics conv blocks
+(mode CNA | NAC | CNAC, batch/instance norm, act, pad) and the output cap.
 
 The tail runs in its plain form, nearest-up then conv at HR.  The JAX
 package's exact rewrites for the TPU's matrix unit (``collapse_upconv_weight``,
@@ -47,16 +48,18 @@ def conv3x3(params: Params, x: torch.Tensor, key: str) -> torch.Tensor:
 
 
 def apply_upsample_block(params: Params, x: torch.Tensor, key: str, *,
-                         mode: str, factor: int, act_type: str) -> torch.Tensor:
+                         mode: str, factor: int, act_type: str,
+                         act_key: str = "") -> torch.Tensor:
     """One upsample block (upconv: nearest-resize + conv + act, reference
-    block.py:348-361; pixelshuffle: conv + shuffle + act, block.py:333-346)."""
+    block.py:348-361; pixelshuffle: conv + shuffle + act, block.py:333-346).
+    ``act_key`` is the act submodule's prefix, for prelu/swish parameters."""
     if mode == "upconv":
         x = conv3x3(params, R.upsample_nearest(x, factor), key)
     elif mode == "pixelshuffle":
         x = F.pixel_shuffle(conv3x3(params, x, key), factor)
     else:
         raise NotImplementedError(f"upsample mode [{mode}] is not found")
-    return F.act(act_type, x)
+    return F.act(act_type, x, params=params, key=act_key)
 
 
 def warn_train_dropout(arch: str) -> None:
@@ -71,37 +74,55 @@ def warn_train_dropout(arch: str) -> None:
         "will differ from the reference's random draws")
 
 
-def conv_block_layout(mode: str = "CNA", norm_type=None, act_type=None) -> List[str]:
-    """Positional submodule kinds of a reference ``conv_block`` with zero
-    padding (block.py:213-254): CNA/CNAC order [conv, norm?, act?], NAC
-    order [norm?, act?, conv]."""
+def conv_block_layout(mode: str = "CNA", norm_type=None, act_type=None,
+                      pad_type: str = "zero") -> List[str]:
+    """Positional submodule kinds of a reference ``conv_block``
+    (block.py:213-254): CNA/CNAC order [pad?, conv, norm?, act?], NAC order
+    [norm?, act?, pad?, conv].  Zero padding is folded into the conv and
+    'none' norm adds no module; parameterless modules still take an index."""
     mode = (mode or "CNA").upper()
     if mode not in ("CNA", "NAC", "CNAC"):
         raise NotImplementedError(f"Wrong conv mode [{mode}]")
+    has_pad = pad_type not in (None, "zero")
     has_norm = norm_type not in (None, "none")
     has_act = act_type is not None
     if mode == "NAC":
-        order = (("norm", has_norm), ("act", has_act), ("conv", True))
+        order = (("norm", has_norm), ("act", has_act), ("pad", has_pad), ("conv", True))
     else:
-        order = (("conv", True), ("norm", has_norm), ("act", has_act))
+        order = (("pad", has_pad), ("conv", True), ("norm", has_norm), ("act", has_act))
     return [kind for kind, on in order if on]
 
 
 def apply_conv_block(params: Params, x: torch.Tensor, key_of, *,
-                     mode: str = "CNA", norm_type=None, act_type=None) -> torch.Tensor:
+                     mode: str = "CNA", norm_type=None, act_type=None,
+                     pad_type: str = "zero", padding: int = 1, stride: int = 1,
+                     bn_training: bool = False, neg_slope: float = 0.2) -> torch.Tensor:
     """Apply one reference-semantics conv_block; ``key_of(i)`` maps the
-    positional submodule index to its state-dict prefix.  Norm layers come
-    with the RRDB variants of a later slice."""
-    for i, kind in enumerate(conv_block_layout(mode, norm_type, act_type)):
+    positional submodule index to its state-dict prefix."""
+    for i, kind in enumerate(conv_block_layout(mode, norm_type, act_type, pad_type)):
         k = key_of(i)
-        if kind == "conv":
-            x = F.conv2d(x, params[f"{k}.weight"], params.get(f"{k}.bias"), padding=1)
+        if kind == "pad":
+            x = F.pad2d(x, padding, mode=pad_type)
+        elif kind == "conv":
+            pad = padding if pad_type in (None, "zero") else 0
+            x = F.conv2d(x, params[f"{k}.weight"], params.get(f"{k}.bias"),
+                         stride=stride, padding=pad)
         elif kind == "norm":
-            raise NotImplementedError(
-                f"norm layer [{norm_type}] is not ported to innfer_tpu_torch "
-                "yet (ROADMAP.md queue A5, RRDB variants)")
+            nt = str(norm_type).lower()
+            if nt == "batch":
+                x = F.batch_norm(x, params[f"{k}.weight"], params[f"{k}.bias"],
+                                 params.get(f"{k}.running_mean"),
+                                 params.get(f"{k}.running_var"), training=bn_training)
+            elif nt == "instance":
+                x = F.instance_norm(x)
+            else:
+                raise NotImplementedError(f"normalization layer [{norm_type}] is not found")
         else:
-            x = F.act(act_type, x)
+            # NAC without norm recreates the act out of place (block.py:247-252),
+            # the one inplace=False site
+            inplace = not ((mode or "CNA").upper() == "NAC" and norm_type in (None, "none"))
+            x = F.act(act_type, x, neg_slope=neg_slope, params=params, key=k,
+                      inplace=inplace)
     return x
 
 

@@ -11,17 +11,21 @@ Backends for the RDB (``cfg["backend"]``):
     norm layers and biased convs.  On a CPU tensor the wrapper runs its
     plain version.
   * ``torch``: the plain gather form, one cuDNN conv per dense step.
+  * ``scatter``: the plain form with the convs regrouped by source
+    (:func:`_rdb5c_scatter`), an opt-in regrouping as in the JAX package,
+    not a kernel; parameter-free activations without norm only.
   * ``auto`` (default): ``kernel`` for every CUDA tensor in the
-    configuration the kernel covers, else ``torch``.
+    configuration the kernel covers, else ``torch``.  Norm layers and
+    prelu/swish take the plain path, as they take XLA's in the JAX
+    package.
 With ``INNFER_RDB_CHAIN=1`` in the environment (read at each trunk call,
 default off, as in the JAX package) the ``kernel``/``auto`` trunk runs as
 one ``fused_rrdb_trunk``: nb*nr chain-mode RDB launches on persistent
 workspaces, each RRDB's residual fused into its last RDB.
 
 Both residuals multiply by 0.2 in the activation dtype (``res_scale``), as
-the JAX package's ``jnp.asarray(0.2, x.dtype)`` does.
-Norm layers, prelu/swish, Conv3D (evsrgan) and the ``scatter`` backend
-come with later slices of the port and raise ``NotImplementedError``.
+the JAX package's ``jnp.asarray(0.2, x.dtype)`` does.  Conv3D (evsrgan)
+comes with a later slice of the port and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,27 +42,80 @@ from innfer_tpu_torch.nn import functional as F
 from innfer_tpu_torch.ops.rdb import (PackedRDB, fused_rdb, fused_rrdb_trunk,
                                       pack_rdb, res_scale)
 
-_BACKENDS = ("auto", "kernel", "torch")
+_BACKENDS = ("auto", "kernel", "torch", "scatter")
 _PLAIN_ACTS = ("relu", "leakyrelu", "lrelu", "tanh", "sigmoid")
 
 
+def _simple(act_type: str, norm_type) -> bool:
+    """No norm layers and a parameter-free activation."""
+    return norm_type in (None, "none") and act_type in _PLAIN_ACTS
+
+
 def _rdb5c(params, x: torch.Tensor, prefix: str, *, act_type: str,
-           plus: bool) -> torch.Tensor:
-    """Residual Dense Block, plain gather form: 5 dense-concat convs (CNA,
+           plus: bool, norm_type=None) -> torch.Tensor:
+    """Residual Dense Block, plain gather form: 5 dense-concat conv blocks
+    (always CNA: RRDBNet passes mode='CNA' to its RRDBs, RRDBNet_arch.py:27;
     conv5 without act), ESRGAN+ conv1x1 cross-residuals, out*0.2 + x."""
-    conv = lambda i, t: F.conv2d(  # noqa: E731
-        t, params[f"{prefix}.conv{i}.0.weight"],
-        params.get(f"{prefix}.conv{i}.0.bias"), padding=1)
     cat = lambda *ts: torch.cat(ts, dim=-1)  # noqa: E731
-    x1 = F.act(act_type, conv(1, x))
-    x2 = F.act(act_type, conv(2, cat(x, x1)))
+
+    def cb(i, t, act):
+        return C.apply_conv_block(
+            params, t, lambda j: f"{prefix}.conv{i}.{j}", mode="CNA",
+            norm_type=norm_type, act_type=act_type if act else None)
+
+    x1 = cb(1, x, True)
+    x2 = cb(2, cat(x, x1), True)
     if plus:
         x2 = x2 + F.conv2d(x, params[f"{prefix}.conv1x1.weight"])
-    x3 = F.act(act_type, conv(3, cat(x, x1, x2)))
-    x4 = F.act(act_type, conv(4, cat(x, x1, x2, x3)))
+    x3 = cb(3, cat(x, x1, x2), True)
+    x4 = cb(4, cat(x, x1, x2, x3), True)
     if plus:
         x4 = x4 + x2
-    x5 = conv(5, cat(x, x1, x2, x3, x4))
+    x5 = cb(5, cat(x, x1, x2, x3, x4), False)
+    return x5 * res_scale(x.dtype) + x
+
+
+def _rdb5c_scatter(params, x: torch.Tensor, prefix: str, *, act_type: str,
+                   plus: bool) -> torch.Tensor:
+    """The RDB with its convs regrouped BY SOURCE, as
+    ``innfer_tpu/models/rrdb.py::_rdb5c_scatter``: the same function as the
+    gather form, summed in another order.  conv_k is linear in its input
+    slices, so for each source s (x, x1..x4) one conv computes source s's
+    contributions to every later target (Cout 192/160/128/96/64 at nf=64,
+    gc=32); contributions accumulate per target in fp32, and each target's
+    bias and activation apply once all its sources have scattered."""
+    nf = x.shape[-1]
+    ws = [params[f"{prefix}.conv{k}.0.weight"] for k in range(1, 6)]
+    bs = [params.get(f"{prefix}.conv{k}.0.bias") for k in range(1, 6)]
+    gc = int(ws[0].shape[0])
+    sws = []
+    for s in range(5):
+        lo = 0 if s == 0 else nf + (s - 1) * gc
+        width = nf if s == 0 else gc
+        sws.append(torch.cat([ws[k][:, lo:lo + width] for k in range(s, 5)], dim=0))
+    pre = [None] * 5
+    src, x2 = x, None
+    for s in range(5):
+        contrib = F.conv2d(src, sws[s], padding=1, out_dtype=torch.float32)
+        off = 0
+        for k in range(s, 5):
+            width = gc if k < 4 else nf
+            piece = contrib[..., off:off + width]
+            pre[k] = piece if pre[k] is None else pre[k] + piece
+            off += width
+        if s < 4:
+            p = pre[s] if bs[s] is None else pre[s] + bs[s].float()
+            a = F.act(act_type, p).to(x.dtype)
+            if plus:
+                # the ESRGAN+ cross-residuals change the post-activation
+                # sources x2 and x4 (RRDBNet_arch.py:155-160)
+                if s == 1:
+                    a = a + F.conv2d(x, params[f"{prefix}.conv1x1.weight"])
+                    x2 = a
+                elif s == 3:
+                    a = a + x2
+            src = a
+    x5 = (pre[4] if bs[4] is None else pre[4] + bs[4].float()).to(x.dtype)
     return x5 * res_scale(x.dtype) + x
 
 
@@ -100,39 +157,47 @@ def _rdb_names(nr: int):
 
 
 def _rrdb(params, x: torch.Tensor, prefix: str, *, nr: int, act_type: str,
-          plus: bool, backend: str = "auto") -> torch.Tensor:
+          plus: bool, backend: str = "auto", norm_type=None) -> torch.Tensor:
     names = _rdb_names(nr)
     biased = f"{prefix}.{names[0]}.conv1.0.bias" in params
     if backend == "kernel":
-        if not (_kernel_config_ok(act_type, None) and biased):
+        if not (_kernel_config_ok(act_type, norm_type) and biased):
             raise ValueError(
                 "backend='kernel' requires leakyrelu activation, no norm "
-                f"layers and biased convs; got act {act_type!r}, "
-                f"biased={biased}")
+                f"layers and biased convs; got act {act_type!r}, norm "
+                f"{norm_type!r}, biased={biased}")
         fused = True
     else:
         fused = (backend == "auto" and x.is_cuda and biased
-                 and _kernel_config_ok(act_type, None))
+                 and _kernel_config_ok(act_type, norm_type))
+    if backend == "scatter" and not _simple(act_type, norm_type):
+        raise ValueError(
+            "backend='scatter' requires a parameter-free activation and no "
+            f"norm layers; got act {act_type!r}, norm {norm_type!r}")
     out = x
     for name in names:
         if fused:
             out = _rdb5c_kernel(params, out, f"{prefix}.{name}", plus=plus)
+        elif backend == "scatter":
+            out = _rdb5c_scatter(params, out, f"{prefix}.{name}",
+                                 act_type=act_type, plus=plus)
         else:
             out = _rdb5c(params, out, f"{prefix}.{name}", act_type=act_type,
-                         plus=plus)
+                         plus=plus, norm_type=norm_type)
     return out * res_scale(x.dtype) + x
 
 
-def _use_chain(params, x: torch.Tensor, *, nr: int, act_type: str,
+def _use_chain(params, x: torch.Tensor, *, nr: int, act_type: str, norm_type,
                backend: str) -> bool:
     """The chain gate of innfer_tpu/models/rrdb.py:270-276: opted in with
     INNFER_RDB_CHAIN=1, a kernel backend, biased convs, the kernel's
-    configuration, and a CUDA tensor (or backend='kernel', whose CPU path
-    runs the same chain over the plain versions)."""
+    configuration (leakyrelu, no norm), and a CUDA tensor (or
+    backend='kernel', whose CPU path runs the same chain over the plain
+    versions)."""
     return (os.environ.get("INNFER_RDB_CHAIN", "0") == "1"
             and backend in ("auto", "kernel")
             and f"model.1.sub.0.{_rdb_names(nr)[0]}.conv1.0.bias" in params
-            and _kernel_config_ok(act_type, None)
+            and _kernel_config_ok(act_type, norm_type)
             and (x.is_cuda or backend == "kernel"))
 
 
@@ -164,29 +229,24 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
     finalact = cfg.get("finalact")
     outm = cfg.get("outm")
     norm_type = cfg.get("norm_type")
+    if norm_type == "none":
+        norm_type = None
     conv_mode = cfg.get("mode", "CNA")
     backend = cfg.get("backend", "auto")
-    if norm_type not in (None, "none"):
-        raise NotImplementedError(
-            f"RRDBNet with norm layers ({norm_type}) is not ported to "
-            "innfer_tpu_torch yet (ROADMAP.md queue A5, RRDB variants)")
-    if act_type not in _PLAIN_ACTS or (finalact and finalact not in _PLAIN_ACTS):
-        raise NotImplementedError(
-            f"RRDBNet with {act_type}/{finalact} activations is not ported to "
-            "innfer_tpu_torch yet (ROADMAP.md queue A5, RRDB variants)")
+    if norm_type not in (None, "batch", "instance"):
+        raise NotImplementedError(f"normalization layer [{norm_type}] is not found")
     if cfg.get("convtype", "Conv2D") != "Conv2D":
         raise NotImplementedError(
             "evsrgan (Conv3D) is not ported to innfer_tpu_torch yet "
             "(ROADMAP.md queue A16)")
-    if backend == "scatter":
-        raise NotImplementedError(
-            "the 'scatter' RDB backend is not ported to innfer_tpu_torch "
-            "(ROADMAP.md queue A5)")
     if backend not in _BACKENDS:
         raise ValueError(f"backend must be one of {_BACKENDS}; got {backend!r}")
 
     _n_up, factor = C.n_upscale_blocks(upscale)
     up_convs, hr0 = C.upsample_indices(upscale, up_mode)
+    # the act submodule's flat index inside each upsample block:
+    # upconv [Up, conv@ci, act@ci+1]; pixelshuffle [conv@ci, PS, act@ci+2]
+    act_off = 1 if up_mode == "upconv" else 2
 
     def apply_trunk(params, x: torch.Tensor) -> torch.Tensor:
         """fea conv -> nb RRDBs -> LR conv -> shortcut sum: the whole
@@ -194,25 +254,31 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
         hybrid engine can run it untiled on the full image."""
         fea = C.conv3x3(params, x, "model.0")
         t = fea
-        if _use_chain(params, t, nr=nr, act_type=act_type, backend=backend):
+        if _use_chain(params, t, nr=nr, act_type=act_type, norm_type=norm_type,
+                      backend=backend):
             t = _trunk_chain(params, t, nb=nb, nr=nr, plus=plus)
         else:
             for i in range(nb):
                 t = _rrdb(params, t, f"model.1.sub.{i}", nr=nr, act_type=act_type,
-                          plus=plus, backend=backend)
-        # LR_conv, flattened into the trunk sequential at positional base nb
+                          plus=plus, backend=backend, norm_type=norm_type)
+        # LR_conv: mode/norm-dependent layout, flattened into the trunk
+        # sequential at positional base nb (RRDBNet_arch.py:29)
         t = C.apply_conv_block(params, t, lambda j: f"model.1.sub.{nb + j}",
-                               mode=conv_mode, act_type=None)
+                               mode=conv_mode, norm_type=norm_type, act_type=None)
         return fea + t  # ShortcutBlock (block.py:183-194)
 
     def apply_tail(params, h: torch.Tensor) -> torch.Tensor:
         for ci in up_convs:
             h = C.apply_upsample_block(params, h, f"model.{ci}", mode=up_mode,
-                                       factor=factor, act_type=act_type)
-        h = F.act(act_type, C.conv3x3(params, h, f"model.{hr0}"))
+                                       factor=factor, act_type=act_type,
+                                       act_key=f"model.{ci + act_off}")
+        h = F.act(act_type, C.conv3x3(params, h, f"model.{hr0}"), params=params,
+                  key=f"model.{hr0 + 1}")
         h = C.conv3x3(params, h, f"model.{hr0 + 2}")
         if finalact:
-            h = F.act(finalact, h)
+            # outact follows HR_conv1 in the top-level sequential
+            # (RRDBNet_arch.py:45-48)
+            h = F.act(finalact, h, params=params, key=f"model.{hr0 + 3}")
         return _outm(h, outm)
 
     def apply(params, x: torch.Tensor) -> torch.Tensor:
@@ -227,6 +293,10 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
         apply_tail=apply_tail,
         # upsample-chain receptive radius in LR px (covers scales 1/2/4/8)
         tail_halo=4,
+        # the fused RDB runs wherever auto/kernel meets its configuration
+        # (the JAX package's tile_quantum condition, rrdb.py:336-338)
+        trunk_kernel=(backend in ("auto", "kernel")
+                      and _kernel_config_ok(act_type, norm_type)),
     )
 
 

@@ -2,7 +2,7 @@
 NHWC layout.
 
 The port's counterpart of ``innfer_tpu/nn/functional.py`` for the ops the
-ESRGAN and CycleGAN paths need.  Activations are NHWC tensors, as the JAX package's
+ESRGAN, CycleGAN, SRResNet, PAN and PPON paths need.  Activations are NHWC tensors, as the JAX package's
 public functions take them; conv weights stay OIHW, as in the checkpoint.
 A contiguous NHWC tensor viewed with ``permute(0, 3, 1, 2)`` is a
 channels-last NCHW tensor, so cuDNN runs on it without a copy.
@@ -23,7 +23,7 @@ fp32).  A bf16 cuDNN conv would round the bias to bf16 before adding it.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as TF
@@ -46,31 +46,45 @@ def true_fp32(dtype: torch.dtype):
 
 
 @contextlib.contextmanager
-def _tf32_for_bf16_operands():
-    """Allow TF32 in cuDNN while an fp32 conv of bf16-valued operands runs
-    (exact: see the module docstring); the previous flag is restored."""
-    cudnn = torch.backends.cudnn
-    prev = cudnn.allow_tf32
-    cudnn.allow_tf32 = True
+def _tf32_for_bf16_operands(lib):
+    """Allow TF32 in ``lib`` (``torch.backends.cudnn`` for a conv,
+    ``torch.backends.cuda.matmul`` for a matmul) while an fp32 op of
+    bf16-valued operands runs (exact: see the module docstring); the
+    previous flag is restored."""
+    prev = lib.allow_tf32
+    lib.allow_tf32 = True
     try:
         yield
     finally:
-        cudnn.allow_tf32 = prev
+        lib.allow_tf32 = prev
 
 
-def _conv(fn, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], **kw):
-    """``fn`` (TF.conv2d or TF.conv_transpose2d) on NHWC ``x``: true fp32
-    for fp32/fp64 activations; otherwise bf16-valued operands accumulated
-    in fp32 with the fp32 bias, rounded once to the activation dtype."""
+def _fp32_accumulate(fn, lib, x: torch.Tensor, *operands, out_dtype=None):
+    """``fn(x, *operands)`` with an fp32 accumulator: true fp32 for fp32/fp64
+    ``x``; otherwise fp32 on the bf16 values (TF32 allowed in ``lib``),
+    then one rounding to ``out_dtype`` (default ``x.dtype``).  Operands
+    come cast as they should multiply: weights to ``x``'s dtype, biases
+    fp32."""
     dt = x.dtype
     if dt in (torch.float32, torch.float64):
         with true_fp32(dt):
-            out = fn(nhwc_to_nchw(x), w.to(dt), None if b is None else b.to(dt), **kw)
-        return nchw_to_nhwc(out)
-    with _tf32_for_bf16_operands():
-        out = fn(nhwc_to_nchw(x).float(), w.to(dt).float(),
-                 None if b is None else b.float(), **kw)
-    return nchw_to_nhwc(out.to(dt))
+            out = fn(x, *(None if t is None else t.to(dt) for t in operands))
+        return out if out_dtype is None else out.to(out_dtype)
+    with _tf32_for_bf16_operands(lib):
+        out = fn(x.float(), *(None if t is None else t.float() for t in operands))
+    return out.to(out_dtype or dt)
+
+
+def _conv(fn, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
+          out_dtype=None, **kw):
+    """``fn`` (TF.conv2d or TF.conv_transpose2d) on NHWC ``x``: true fp32
+    for fp32/fp64 activations; otherwise bf16-valued operands accumulated
+    in fp32 with the fp32 bias, rounded once to the activation dtype (or
+    kept in ``out_dtype``)."""
+    out = _fp32_accumulate(lambda t, wt, bt: fn(nhwc_to_nchw(t), wt, bt, **kw),
+                           torch.backends.cudnn, x, w.to(x.dtype), b,
+                           out_dtype=out_dtype)
+    return nchw_to_nhwc(out)
 
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -83,14 +97,17 @@ def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-           *, stride: int = 1, padding: int = 0) -> torch.Tensor:
+           *, stride: int = 1, padding: int = 0, dilation: int = 1,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """2D convolution, NHWC x OIHW -> NHWC.  Matches torch.nn.Conv2d.
 
     Weights are cast to the activation dtype; the bias stays fp32 and is
     added to the fp32 accumulator before the one rounding (see the module
-    docstring).
+    docstring).  ``out_dtype`` (e.g. fp32) keeps the accumulator's dtype
+    instead, so a caller can go on accumulating across convs.
     """
-    return _conv(TF.conv2d, x, w, b, stride=stride, padding=padding)
+    return _conv(TF.conv2d, x, w, b, out_dtype=out_dtype, stride=stride,
+                 padding=padding, dilation=dilation)
 
 
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
@@ -104,14 +121,40 @@ def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
                  output_padding=output_padding)
 
 
-def pad2d(x: torch.Tensor, pad: int, mode: str = "zero") -> torch.Tensor:
-    """Spatial padding of an NHWC tensor on all four sides: 'zero' |
+_MATMUL = torch.backends.cuda.matmul
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Channel-mixing matmul over the last axis (a 1x1 Conv1d).  ``w`` keeps
+    the checkpoint's Conv1d layout (O, I, 1); the fp32 bias joins the fp32
+    accumulator before the one rounding, as ``innfer_tpu/nn/functional.py:
+    197-205``."""
+    w2 = w.reshape(w.shape[0], -1).t().to(x.dtype)
+    out = _fp32_accumulate(torch.matmul, _MATMUL, x, w2, out_dtype=torch.float32)
+    if b is not None:
+        out = out + b.float()
+    return out.to(x.dtype)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``a @ b`` (batched) with an fp32 accumulator, rounded once to
+    ``out_dtype`` (default ``a.dtype``): ``jnp.einsum`` with
+    ``preferred_element_type=float32``.  A bf16 ``torch.matmul`` would
+    round its result to bf16 first."""
+    return _fp32_accumulate(torch.matmul, _MATMUL, a, b.to(a.dtype), out_dtype=out_dtype)
+
+
+def pad2d(x: torch.Tensor, pad: Union[int, Tuple[int, int, int, int]],
+          mode: str = "zero") -> torch.Tensor:
+    """Spatial padding of an NHWC tensor: ``pad`` is an int (all sides) or
+    torch-F.pad-ordered (left, right, top, bottom); ``mode`` 'zero' |
     'reflect' | 'replicate' (nn.ZeroPad2d / ReflectionPad2d /
     ReplicationPad2d)."""
     if mode not in ("zero", "reflect", "replicate"):
         raise NotImplementedError(f"padding mode [{mode}] is not implemented")
-    out = TF.pad(nhwc_to_nchw(x), (pad,) * 4,
-                 mode="constant" if mode == "zero" else mode)
+    pads = (pad,) * 4 if isinstance(pad, int) else tuple(pad)
+    out = TF.pad(nhwc_to_nchw(x), pads, mode="constant" if mode == "zero" else mode)
     return nchw_to_nhwc(out).contiguous()
 
 
@@ -165,24 +208,56 @@ def leaky_relu(x: torch.Tensor, neg_slope: float = 0.2) -> torch.Tensor:
     return torch.where(x >= 0, x, x * torch.tensor(neg_slope, dtype=x.dtype))
 
 
-def act(kind: Optional[str], x: torch.Tensor) -> torch.Tensor:
-    """Activation dispatcher (reference block.py:81-101), parameter-free
-    kinds only; prelu/swish come with the RRDB variants of a later slice."""
+def prelu(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """PReLU with a per-channel (or single) weight; channel is the last
+    axis.  The weight multiplies in the activation dtype."""
+    w = weight.to(x.dtype)
+    if w.numel() > 1:
+        w = w.reshape((1,) * (x.dim() - 1) + (-1,))
+    return torch.where(x >= 0, x, x * w)
+
+
+def swish(x: torch.Tensor, beta: torch.Tensor, slope: float = 1.67653251702,
+          inplace: bool = False) -> torch.Tensor:
+    """Learnable-beta Swish, ``slope * x * sigmoid(beta * x)`` (reference
+    block.py:14-78).  ``inplace=True`` reproduces the reference's in-place
+    swish_func (block.py:36-40), which discards the sigmoid and computes
+    ``slope * x * x``: conv_block activations default to in place, so
+    checkpoints trained with swish embody it (golden esrgan_swish_x2)."""
+    s = torch.tensor(slope, dtype=x.dtype)
+    if inplace:
+        return s * x * x
+    return s * x * torch.sigmoid(beta.to(x.dtype) * x)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(x)
+
+
+def act(kind: Optional[str], x: torch.Tensor, *, neg_slope: float = 0.2,
+        params=None, key: str = "", inplace: bool = True) -> torch.Tensor:
+    """Activation dispatcher (reference block.py:81-101).  prelu and swish
+    read ``params[key + ".weight"]`` / ``params[key + ".beta"]``;
+    ``inplace`` mirrors the reference act() default and changes only
+    swish (see :func:`swish`)."""
     if kind is None:
         return x
     kind = kind.lower()
     if kind == "relu":
         return torch.relu(x)
     if kind in ("leakyrelu", "lrelu"):
-        return leaky_relu(x)
+        return leaky_relu(x, neg_slope)
     if kind == "tanh":
         return torch.tanh(x)
     if kind == "sigmoid":
         return torch.sigmoid(x)
     if kind in ("prelu", "swish"):
-        raise NotImplementedError(
-            f"{kind} activation is not ported to innfer_tpu_torch yet "
-            "(ROADMAP.md queue A5, RRDB variants)")
+        if params is None or not key:
+            raise NotImplementedError(
+                f"{kind} activation needs parameter plumbing at this call site")
+        if kind == "prelu":
+            return prelu(x, params[key + ".weight"])
+        return swish(x, params[key + ".beta"], inplace=inplace)
     raise NotImplementedError(f"activation layer [{kind}] is not found")
 
 
@@ -193,3 +268,13 @@ def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     c = crr // (r * r)
     x = x.reshape(b, h, w, c, r, r).permute(0, 1, 4, 2, 5, 3)
     return x.reshape(b, h * r, w * r, c)
+
+
+def max_pool2d(x: torch.Tensor, kernel: int, stride: Optional[int] = None) -> torch.Tensor:
+    """MaxPool2d with no padding (nn.MaxPool2d(k, s)), NHWC."""
+    return nchw_to_nhwc(TF.max_pool2d(nhwc_to_nchw(x), kernel, stride or kernel))
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Softmax computed in fp32, cast back to ``x``'s dtype."""
+    return torch.softmax(x.float(), dim=dim).to(x.dtype)

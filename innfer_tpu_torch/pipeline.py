@@ -2,7 +2,8 @@
 per-directory image loop.
 
 The port's counterpart of ``innfer_tpu/pipeline.py`` (reference
-run.py:229-447) for one model at a time:
+run.py:229-447) for one model at a time, a state-dict checkpoint or a
+TorchScript archive (``-a ts`` or its fingerprint; fp32, compat/torchscript.py):
   * arch-family presets and model-path resolution (exact path ->
     ./models -> case-insensitive substring search, scale from the 'Nx_'
     filename prefix);
@@ -28,6 +29,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from innfer_tpu_torch.compat.torchscript import (FitTileRunner, is_torchscript,
+                                                 load_torchscript)
 from innfer_tpu_torch.device import DeviceLike, resolve_device
 from innfer_tpu_torch.io import images as iio
 from innfer_tpu_torch.loader import load_model
@@ -218,7 +221,8 @@ class Stage:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if self.chop and self.runner is not None:
             return self.runner(self.params, x)
-        return self.model.apply(self.params, x)
+        out = self.model.apply(self.params, x)
+        return out if self.model.output_index is None else out[self.model.output_index]
 
 
 class InferenceSession:
@@ -248,29 +252,34 @@ class InferenceSession:
             raise NotImplementedError(
                 "model chains are not ported to innfer_tpu_torch yet "
                 "(ROADMAP.md queue A15); run one model per session")
-        if self.presets.arch == "ts":
-            raise NotImplementedError(
-                "TorchScript models (-a ts) are not ported to innfer_tpu_torch "
-                "yet (ROADMAP.md queue A8)")
         if self.presets.resize:
             raise NotImplementedError(
                 "the linear_resize preset (pix2pix/UNet) is not ported to "
                 "innfer_tpu_torch yet (ROADMAP.md queue A13)")
-        model, params = load_model(
-            paths[0], arch=self.presets.arch,
-            scale=scale if scale is not None else scales[0],
-            param_dtype=compute_dtype, device=self.device, backend=backend,
-            strict=self.presets.strict)
+        scale = scale if scale is not None else scales[0]
         runner = None
-        if self.presets.chop:
-            runner = TiledRunner(
-                model.apply, model.scale, mode=tile_mode, tile=tile,
-                overlap=overlap, tile_batch=tile_batch, compute_dtype=compute_dtype,
-                trunk_fn=model.apply_trunk, tail_fn=model.apply_tail,
-                tail_halo=model.tail_halo)
+        if self.presets.arch == "ts" or is_torchscript(paths[0]):
+            # the reference turns fp16 off for TorchScript (run.py:341-343)
+            self.compute_dtype = torch.float32
+            model, params = load_torchscript(paths[0], device=self.device, scale=scale)
+            if self.presets.chop:
+                runner = FitTileRunner(model.apply, model.scale, tile=tile,
+                                       overlap=overlap, tile_batch=tile_batch)
+        else:
+            model, params = load_model(
+                paths[0], arch=self.presets.arch, scale=scale,
+                param_dtype=compute_dtype, device=self.device, backend=backend,
+                strict=self.presets.strict)
+            if self.presets.chop:
+                runner = TiledRunner(
+                    model.apply, model.scale, mode=tile_mode, tile=tile,
+                    overlap=overlap, tile_batch=tile_batch, compute_dtype=compute_dtype,
+                    trunk_fn=model.apply_trunk, tail_fn=model.apply_tail,
+                    tail_halo=model.tail_halo, trunk_kernel=model.trunk_kernel,
+                    output_index=model.output_index)
         self.stage = Stage(model, params, self.presets.chop, runner)
         log.info("innfer_tpu_torch session on %s, %s compute, image codec: %s",
-                 self.device, compute_dtype, iio.codec_name())
+                 self.device, self.compute_dtype, iio.codec_name())
 
     def prepare(self, img: np.ndarray) -> np.ndarray:
         if self.presets.use_modcrop:

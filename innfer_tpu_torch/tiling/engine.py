@@ -109,13 +109,20 @@ def recompose_tiles(tiles_sr: torch.Tensor, plan: TilePlan,
     return canvas[None, : plan.out_h, : plan.out_w, :]
 
 
-def _run_groups(fn: Callable, params, tiles: torch.Tensor, chunk: int) -> torch.Tensor:
-    return torch.cat([fn(params, tiles[i: i + chunk])
-                      for i in range(0, tiles.shape[0], chunk)])
+def _run_groups(fn: Callable, params, tiles: torch.Tensor, chunk: int,
+                output_index: Optional[int] = None) -> torch.Tensor:
+    """``fn`` over groups of ``chunk`` tiles, concatenated; a multi-output
+    model's forward is cut to its ``output_index``."""
+    outs = []
+    for i in range(0, tiles.shape[0], chunk):
+        out = fn(params, tiles[i: i + chunk])
+        outs.append(out if output_index is None else out[output_index])
+    return torch.cat(outs)
 
 
 def tiled_apply(apply_fn: Callable, params, x: torch.Tensor, plan: TilePlan, *,
-                tile_batch: int = 8, compute_dtype: Optional[torch.dtype] = None,
+                tile_batch: int = 8, output_index: Optional[int] = None,
+                compute_dtype: Optional[torch.dtype] = None,
                 consts: Optional[PlanConsts] = None) -> torch.Tensor:
     """Run ``apply_fn`` over all tiles of one image (1, H, W, C) in groups
     of the plan's chunk (default ``min(tile_batch, n_tiles)``) and
@@ -128,7 +135,8 @@ def tiled_apply(apply_fn: Callable, params, x: torch.Tensor, plan: TilePlan, *,
     if compute_dtype is not None:
         tiles = tiles.to(compute_dtype)
     chunk = plan.chunk or min(tile_batch, plan.n_tiles)
-    return recompose_tiles(_run_groups(apply_fn, params, tiles, chunk), plan, consts)
+    return recompose_tiles(_run_groups(apply_fn, params, tiles, chunk, output_index),
+                           plan, consts)
 
 
 def _wide_bw(tw: int) -> int:
@@ -192,11 +200,10 @@ def hybrid_apply(trunk_fn: Callable, tail_fn: Callable, params, x: torch.Tensor,
 class TiledRunner:
     """Plan cache + tiled/hybrid execution per image size.
 
-    ``mode``: ``uniform`` (fixed --tile grid), ``auto`` (grid-fit plan;
-    on a CUDA tensor it upgrades to ``hybrid`` when the model has a
-    trunk/tail split and the image is within HYBRID_PX_CAP) or ``hybrid``.
-    The port runs on one device, so the JAX package's single-chip
-    condition always holds.
+    ``mode``: ``uniform`` (fixed --tile grid), ``auto`` (grid-fit plan,
+    upgraded to ``hybrid`` where :meth:`_hybrid_auto_eligible` says) or
+    ``hybrid``.  ``output_index`` picks one output of a multi-output
+    model (PPON, which has no trunk/tail split) on the tile grid.
     """
 
     # whole-trunk input-pixel cap for hybrid mode, the JAX package's
@@ -207,7 +214,8 @@ class TiledRunner:
                  tile=256, overlap: int = 16, tile_batch: int = 8,
                  compute_dtype: Optional[torch.dtype] = None,
                  trunk_fn: Callable = None, tail_fn: Callable = None,
-                 tail_halo: int = 0):
+                 tail_halo: int = 0, trunk_kernel: bool = False,
+                 output_index: Optional[int] = None):
         if mode not in ("auto", "uniform", "hybrid"):
             raise NotImplementedError(
                 f"tile mode {mode!r} is not ported to innfer_tpu_torch yet; "
@@ -227,12 +235,25 @@ class TiledRunner:
         self.trunk_fn = trunk_fn
         self.tail_fn = tail_fn
         self.tail_halo = tail_halo
+        self.trunk_kernel = trunk_kernel
+        self.output_index = output_index
         self._plans: Dict[tuple, TilePlan] = {}
         self._consts: Dict[tuple, PlanConsts] = {}
         self.last_mode: Optional[str] = None
 
     def _hybrid_auto_eligible(self, h: int, w: int, on_cuda: bool) -> bool:
-        return (on_cuda and self.trunk_fn is not None
+        """An auto run upgrades to hybrid where the JAX package's does
+        (innfer_tpu/tiling/engine.py:424-441): the model has a trunk/tail
+        split, the image is within HYBRID_PX_CAP, and the trunk runs a
+        port kernel on this device (``trunk_kernel`` and a CUDA tensor).
+        The JAX gate also asks for bf16, because its Pallas kernel fires
+        only in bf16; the port's kernel runs fp32 as well, so this gate
+        does not.  A trunk of plain ops (SRResNet, ESRGAN with norm layers
+        or prelu/swish, backend='torch') keeps the tile grid, and an
+        instance-norm trunk keeps the per-tile statistics the JAX package
+        computes.  The port runs on one device, so the JAX package's
+        single-chip condition always holds."""
+        return (on_cuda and self.trunk_kernel and self.trunk_fn is not None
                 and self.tail_fn is not None and h * w <= self.HYBRID_PX_CAP)
 
     def mode_for(self, h: int, w: int, on_cuda: bool) -> str:
@@ -292,8 +313,8 @@ class TiledRunner:
     def __call__(self, params, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[1], x.shape[2]
         mode = self.mode_for(h, w, x.is_cuda)
-        if x.shape[0] > 1 and mode == "hybrid":
-            # the whole-image trunk runs one image at a time
+        if x.shape[0] > 1:
+            # tiled_apply and the whole-image trunk take one image at a time
             return torch.cat([self(params, x[i: i + 1]) for i in range(x.shape[0])])
         plan = self.plan_for(h, w, x.is_cuda)
         consts = self._plan_consts(plan, x.device)
@@ -305,5 +326,5 @@ class TiledRunner:
                 compute_dtype=self.compute_dtype, out_h=h * self.scale,
                 out_w=w * self.scale, consts=consts)
         return tiled_apply(self.apply_fn, params, x, plan,
-                           tile_batch=self.tile_batch,
+                           tile_batch=self.tile_batch, output_index=self.output_index,
                            compute_dtype=self.compute_dtype, consts=consts)

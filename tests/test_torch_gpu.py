@@ -253,3 +253,195 @@ def test_kernel_backend_raises_where_the_kernels_do_not_reach(cuda_device):
     w = torch.zeros(48, 48, 3, 3, device=cuda_device)
     with pytest.raises(ValueError, match="C % 32"):
         fused_resnet_block(x, w, None, w, None)
+
+
+# ---------------------------------------------------------------------------
+# The SR zoo on the card: plain ops, fp32 card vs CPU at the golden bar
+# ---------------------------------------------------------------------------
+
+def _zoo_state(family, g):
+    """Tiny seeded state dicts in the reference layouts (nf=16)."""
+    from tools import synth_params as SP
+
+    seed = int(g.integers(1 << 30))
+    if family == "srresnet":
+        return SP.srresnet_state(nb=2, nf=16, scale=4, seed=seed), {"type": "srgan", "nb": 2,
+                                                                    "nf": 16}
+    if family == "pan":
+        return (SP.pan_state(nb=2, nf=16, unf=8, scale=4, seed=seed),
+                {"type": "pan", "nb": 2, "nf": 16, "unf": 8})
+    return SP.ppon_state(nb=1, nf=16, scale=4, seed=seed), {"type": "ppon", "nb": 1, "nf": 16}
+
+
+def _variant_state(g, norm, mode, act, nb=1, nf=16, gc=8):
+    """A 2x ESRGAN conv_block variant, keys laid out by conv_block_layout."""
+    from innfer_tpu_torch.models.common import conv_block_layout
+
+    state = {}
+
+    def conv(key, o, i):
+        # variance 1/(3 fan_in), as tools/synth_params.py: the in-place
+        # swish squares its input, and wider weights overflow fp32
+        std = math.sqrt(1.0 / (9 * i))
+        state[f"{key}.weight"] = g.uniform(-std, std, (o, i, 3, 3)).astype(np.float32)
+        state[f"{key}.bias"] = g.uniform(-0.01, 0.01, o).astype(np.float32)
+
+    def act_params(key):
+        if act == "prelu":
+            state[f"{key}.weight"] = np.full(1, 0.25, np.float32)
+        elif act == "swish":
+            state[f"{key}.beta"] = np.asarray(1.0, np.float32)
+
+    def block(key_of, o, i, block_mode, block_act):
+        for j, kind in enumerate(conv_block_layout(block_mode, norm, block_act)):
+            c = i if block_mode == "NAC" else o
+            if kind == "conv":
+                conv(key_of(j), o, i)
+            elif kind == "norm" and norm == "batch":
+                for leaf, v in (("weight", 1), ("bias", 0), ("running_mean", 0),
+                                ("running_var", 1)):
+                    state[f"{key_of(j)}.{leaf}"] = (v + g.uniform(-0.1, 0.1, c)).astype(np.float32)
+            elif kind == "act":
+                act_params(key_of(j))
+
+    conv("model.0", nf, 3)
+    for i in range(nb):
+        for j in (1, 2, 3):
+            for c in range(1, 6):
+                block(lambda k, i=i, j=j, c=c: f"model.1.sub.{i}.RDB{j}.conv{c}.{k}",
+                      gc if c < 5 else nf, nf + (c - 1) * gc, "CNA", act if c < 5 else None)
+    block(lambda k: f"model.1.sub.{nb + k}", nf, nf, mode, None)
+    for ci in (3, 5):  # 2x: the upconv conv and the first HR conv, each with its act
+        conv(f"model.{ci}", nf, nf)
+        act_params(f"model.{ci + 1}")
+    conv("model.7", 3, nf)
+    return state, {"type": "esrgan", "nb": nb, "nf": nf, "gc": gc, "norm_type": norm,
+                   "mode": mode, "act_type": act}
+
+
+_VARIANTS = {"bn": ("batch", "CNA", "leakyrelu"), "nac_bn": ("batch", "NAC", "leakyrelu"),
+             "in": ("instance", "CNA", "leakyrelu"), "prelu": (None, "CNA", "prelu"),
+             "swish": (None, "CNA", "swish")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["srresnet", "pan", "ppon", *[f"esrgan_{v}" for v in _VARIANTS]])
+def test_zoo_fp32_on_card_matches_cpu(cuda_device, family):
+    """True fp32 on the card against the CPU: >= 80 dB (a TF32 leak in a new
+    op would give about 60); no kernel launches (none lies on these paths)."""
+    g = np.random.default_rng(11)
+    if family.startswith("esrgan_"):
+        state, spec = _variant_state(g, *_VARIANTS[family[7:]])
+        scale = 2
+    else:
+        (state, spec), scale = _zoo_state(family, g), 4
+    model = get_network(get_network_config(spec, scale))
+    x = torch.from_numpy(g.random((1, 36, 44, 3), np.float32))
+    outs = []
+    before = fused_rdb.launches
+    for dev in (cuda_device, torch.device("cpu")):
+        params = convert_state(model, state, device=dev)
+        with torch.no_grad():
+            out = model.apply(params, x.to(dev))
+        out = out if model.output_index is None else out[model.output_index]
+        outs.append(out.cpu().numpy())
+    assert fused_rdb.launches == before
+    peak = max(1.0, float(np.abs(outs[1]).max()))
+    mse = np.mean((outs[0].astype(np.float64) - outs[1]) ** 2)
+    assert mse == 0 or 10 * np.log10(peak ** 2 / mse) >= 80
+
+
+@pytest.mark.gpu
+def test_pan_attention_keeps_fp32_scores_in_bf16_on_card(cuda_device):
+    """PAN's FSA in bf16: the scores are the fp32 products of the bf16
+    projections (TF32 on bf16 values is exact), not a bf16 matmul's."""
+    from innfer_tpu_torch.models import pan
+    from innfer_tpu_torch.models.base import cast_params
+
+    g = np.random.default_rng(12)
+    state, spec = _zoo_state("pan", g)
+    model = get_network(get_network_config(spec, 4))
+    params = cast_params(convert_state(model, state, device=cuda_device), torch.bfloat16)
+    x = torch.from_numpy(g.standard_normal((2, 64, 48, 16)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    flat = F.max_pool2d(x, 4).reshape(2, -1, 16)
+    f, gg, h = (F.dense(flat, params[f"FSA.conv_{n}.weight"], params[f"FSA.conv_{n}.bias"])
+                for n in "fgh")
+    s = F.matmul(f, gg.transpose(1, 2), out_dtype=torch.float32)
+    with true_fp32(torch.float32):
+        ref = torch.matmul(f.float(), gg.float().transpose(1, 2))
+    assert s.dtype == torch.float32
+    assert (s - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())
+    att = F.softmax(s, dim=-1).to(torch.bfloat16)
+    with true_fp32(torch.float32):
+        ref_out = torch.matmul(att.float(), h.float()).to(torch.bfloat16)
+    out = F.matmul(att, h)
+    assert (out == ref_out).float().mean().item() >= 0.999
+    y = pan._fsa(params, x, "FSA")
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape and torch.isfinite(y.float()).all()
+
+
+@pytest.mark.gpu
+def test_torchscript_stage_runs_true_fp32_on_card(cuda_device, tmp_path):
+    from innfer_tpu_torch.compat.torchscript import load_torchscript
+
+    module = torch.nn.Sequential(torch.nn.Conv2d(3, 12, 3, padding=1), torch.nn.PixelShuffle(2))
+    path = str(tmp_path / "m.pt")
+    torch.jit.script(module).save(path)
+    model, params = load_torchscript(path, device=cuda_device)
+    assert model.scale == 2
+    x = torch.rand(1, 40, 56, 3, device=cuda_device)
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out = model.apply(params, x)
+        seen = []
+
+        class Spy(torch.nn.Module):
+            def forward(self, t):
+                seen.append((torch.backends.cudnn.allow_tf32,
+                             torch.backends.cuda.matmul.allow_tf32))
+                return t
+
+        real, params["module"] = params["module"], Spy()
+        model.apply(params, x)
+        params["module"] = real
+        assert seen == [(False, False)]
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    module = module.to(cuda_device)
+    with torch.no_grad(), true_fp32(torch.float32):
+        ref = module(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    assert (out - ref).abs().max().item() <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,mode,launches", [
+    ("leakyrelu", "hybrid", 3), ("in", "auto", 0), ("prelu", "auto", 0), ("srresnet", "auto", 0)])
+def test_auto_gate_on_card(cuda_device, variant, mode, launches):
+    """TiledRunner in auto mode on CUDA tensors, built as the session builds
+    it: hybrid only where the trunk runs the fused RDB."""
+    from innfer_tpu_torch.tiling.engine import TiledRunner
+
+    g = np.random.default_rng(13)
+    if variant == "srresnet":
+        state, spec = _zoo_state("srresnet", g)
+        scale = 4
+    else:
+        norm, act = {"leakyrelu": (None, "leakyrelu"), "in": ("instance", "leakyrelu"),
+                     "prelu": (None, "prelu")}[variant]
+        state, spec = _variant_state(g, norm, "CNA", act)
+        scale = 2
+    model = get_network(get_network_config(spec, scale))
+    params = convert_state(model, state, device=cuda_device)
+    runner = TiledRunner(model.apply, model.scale, mode="auto", trunk_fn=model.apply_trunk,
+                         tail_fn=model.apply_tail, tail_halo=model.tail_halo,
+                         trunk_kernel=model.trunk_kernel)
+    before = fused_rdb.launches
+    with torch.no_grad():
+        out = runner(params, torch.rand(1, 40, 56, 3, device=cuda_device))
+    torch.cuda.synchronize()
+    assert runner.last_mode == mode
+    assert fused_rdb.launches - before == launches
+    assert out.shape == (1, 40 * scale, 56 * scale, 3)

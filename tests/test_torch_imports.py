@@ -36,7 +36,9 @@ def test_scan_covers_the_port():
     files = _port_files()
     assert len(files) > 20
     assert os.path.join(ROOT, "chip_smoke.py") in files
-    for module in (("ops", "rdb.py"), ("ops", "resnet_block.py"), ("models", "resnet.py")):
+    for module in (("ops", "rdb.py"), ("ops", "resnet_block.py"), ("models", "resnet.py"),
+                   ("models", "srresnet.py"), ("models", "pan.py"), ("models", "ppon.py"),
+                   ("compat", "torchscript.py"), ("nn", "resize.py")):
         assert any(f.endswith(os.path.join(*module)) for f in files)
 
 

@@ -158,11 +158,11 @@ def test_golden_nr2_through_load_model_from_state():
 
 
 @pytest.mark.parametrize("spec", [
-    {"type": "esrgan", "norm_type": "batch"},
-    {"type": "esrgan", "act_type": "prelu"},
+    {"type": "wbcunet"},
+    {"type": "wbcunet_tf"},
     {"type": "evsrgan"},
-    {"type": "esrgan", "backend": "scatter"},
-    {"type": "srgan"},
+    {"type": "unet_128"},
+    {"type": "p2p_128"},
     {"type": "unet_256"},
 ])
 def test_configs_of_later_slices_raise(spec):

@@ -92,7 +92,8 @@ def test_runner_matches_jax(mode, tile, overlap):
 def test_auto_upgrades_to_hybrid_on_cuda_only():
     _jm, _jp, tm, _tp = _models()
     r = TE.TiledRunner(tm.apply, 4, mode="auto", trunk_fn=tm.apply_trunk,
-                       tail_fn=tm.apply_tail, tail_halo=tm.tail_halo)
+                       tail_fn=tm.apply_tail, tail_halo=tm.tail_halo,
+                       trunk_kernel=tm.trunk_kernel)
     assert r.mode_for(1080, 1920, on_cuda=True) == "hybrid"
     assert r.mode_for(1080, 1920, on_cuda=False) == "auto"
     assert r.mode_for(4320, 7680, on_cuda=True) == "auto"  # over the px cap
