@@ -79,11 +79,29 @@ the final result line):
               arch "ts" on the card: probed scale 4, the tiled output
               against the eager module's whole-image fp32 forward >= 40
               dB (u8), the whole-image stage >= 80 dB, ms per image;
- 10. result   the kernels line (each kernel also with "tflops", its
+ 10. i2i      the image-to-image families, whole image, bf16 and fp32, no
+              kernel launched: a seeded synthetic pix2pix unet_256 (ngf=64,
+              batch norm with running stats and num_batches_tracked,
+              deconv) through InferenceSession(arch="unet_256") with the
+              pix2pix preset (linear_resize to multiples of 256, train-mode
+              BN, [-1, 1]) on the main path's PNGs and a 256x256 one; WBC
+              nf=32 checkpoints named wbc_*.pth (pt) and wbc_tf_*.pth (tf)
+              through the wbc preset (modcrop, the guided filter) on the
+              main path's PNGs; a wbc+wbc chain at 540x960 (two stages, a
+              guided filter after each); -cf on the [zoo] SRResNet at
+              540x960 against color_fix on the CPU of [zoo]'s PNG (u8
+              within 1 level in >= 99.9%).  Each session processes its
+              images twice and prints both passes' ms per image (the
+              first carries cuDNN's set-up of new shapes).  Bars: bf16 vs fp32 u8 >= 30
+              dB, fp32 card vs CPU >= 80 dB (64x64 crop; UNet 256x256).
+              Then guided_filter, color_fix and linear_resize alone, card
+              vs CPU: fp32 >= 80 dB, u8 within 1 level in >= 99.9%, with
+              their times;
+ 11. result   the kernels line (each kernel also with "tflops", its
               achieved rate, and "bound_share", bound_ms / ms), the card
               line and, last,
               {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Each path (main, chain, cyclegan, zoo, ts) runs with every kernel's launch
+Each path (main, chain, cyclegan, zoo, ts, i2i) runs with every kernel's launch
 count set to 0 just before it and read just after; launches made to
 compare a kernel with its plain version are not counted.
 """
@@ -373,10 +391,10 @@ def phase_main(dev, work):
         iio.save_img(synth_image(h, w, seed=10 + i), os.path.join(in_dir, f"{name}.png"))
 
     sess = InferenceSession(ckpt, compute_dtype=torch.bfloat16, tile_mode="auto")
-    cfg = sess.stage.model.cfg
-    if (cfg["nb"], cfg["nf"], cfg["gc"], sess.stage.model.scale) != (23, NF, GC, 4):
+    cfg = sess.stages[0].model.cfg
+    if (cfg["nb"], cfg["nf"], cfg["gc"], sess.stages[0].model.scale) != (23, NF, GC, 4):
         fail(f"auto-detection read the checkpoint as {cfg}")
-    runner = sess.stage.runner
+    runner = sess.stages[0].runner
     per_image = []  # one {"trunk": [...], "tail": [...]} of CUDA event pairs per image
 
     def timed(fn, key):
@@ -447,11 +465,11 @@ def phase_main(dev, work):
 
     # fp32 on a small input: the kernel path is true fp32 end to end
     small = torch.rand(1, 40, 56, 3, generator=torch.Generator().manual_seed(7)).to(dev)
-    model, params = sess.stage.model, sess.stage.params
+    model, params = sess.stages[0].model, sess.stages[0].params
     p32 = {k: v.float() for k, v in params.items()}
     with torch.no_grad():
         a = model.apply(p32, small)
-        ref_model = ref_sess.stage.model
+        ref_model = ref_sess.stages[0].model
         b = ref_model.apply(p32, small)
     db32 = psnr(a.cpu(), b.cpu(), 1.0)
     print(f"[main] fp32 (1,40,56,3): kernel path vs torch path PSNR {db32:.1f} dB", flush=True)
@@ -746,19 +764,20 @@ def synth_cyclegan_state(torch, seed, n_blocks=CG_BLOCKS, ngf=CG_NGF):
 
 
 def time_stage(torch, sess) -> list:
-    """Wrap the session's stage with CUDA events; returns the list that
-    gets one (start, end) pair per image."""
-    stage, events = sess.stage, []
+    """Wrap the session's forward (its stages, and the guided filter where
+    the preset runs it) with CUDA events; returns the list that gets one
+    (start, end) pair per image."""
+    forward, events = sess.forward, []
 
     def timed(x):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        out = stage(x)
+        out = forward(x)
         e1.record()
         events.append((e0, e1))
         return out
 
-    sess.stage = timed
+    sess.forward = timed
     return events
 
 
@@ -782,12 +801,12 @@ def phase_cyclegan(dev, work):
     kw = dict(arch="resnet_9blocks", presets=presets, compute_dtype=torch.bfloat16,
               tile_mode="auto")
     sess = InferenceSession(ckpt, **kw)
-    cfg, params = sess.stage.model.cfg, sess.stage.params
+    cfg, params = sess.stages[0].model.cfg, sess.stages[0].params
     if (cfg["n_blocks"], params["model.1.weight"].shape[0]) != (CG_BLOCKS, CG_NGF):
         fail(f"the session built {cfg} with ngf {params['model.1.weight'].shape[0]}")
     if presets.strict or any("running_" in k for k in params):
         fail("the cyclegan preset did not drop the legacy InstanceNorm keys")
-    model, runner = sess.stage.model, sess.stage.runner
+    model, runner = sess.stages[0].model, sess.stages[0].runner
     groups = {}
     for name, (h, w) in sizes.items():
         plan = runner.plan_for(h, w, on_cuda=True)
@@ -827,7 +846,7 @@ def phase_cyclegan(dev, work):
     block_ms = [sum(a.elapsed_time(b) for i, a, b in blocks if i == k) for k in range(len(sizes))]
 
     ref_sess = InferenceSession(ckpt, backend="torch", **kw)
-    ref_model = ref_sess.stage.model
+    ref_model = ref_sess.stages[0].model
     ref_events = time_stage(torch, ref_sess)
     ref_dir = os.path.join(work, "cg_out_torch")
     t0 = time.perf_counter()
@@ -884,9 +903,15 @@ class SynthState:
     def _uniform(self, shape, bound):
         return (self.torch.rand(*shape, generator=self.g) * 2 - 1) * bound
 
-    def conv(self, key, o, i, k=3, bias=True, dims=2):
+    def conv(self, key, o, i, k=3, bias=True, dims=2, gain=1.0):
         shape = (o, i) + (k,) * dims
-        self.state[f"{key}.weight"] = self._uniform(shape, 1.0 / math.sqrt(i * k ** dims))
+        self.state[f"{key}.weight"] = self._uniform(shape, gain / math.sqrt(i * k ** dims))
+        if bias:
+            self.state[f"{key}.bias"] = self._uniform((o,), 0.01)
+
+    def deconv(self, key, i, o, k, bias=True):
+        """A ConvTranspose2d weight, (I, O, k, k) as torch stores it."""
+        self.state[f"{key}.weight"] = self._uniform((i, o, k, k), 1.0 / math.sqrt(i * k * k))
         if bias:
             self.state[f"{key}.bias"] = self._uniform((o,), 0.01)
 
@@ -1012,14 +1037,15 @@ def synth_esrgan_variant_state(torch, seed, *, norm, mode, act, nb=2, nf=NF, gc=
     return m.state
 
 
-def run_session(torch, sess, in_dir, out_dir):
-    """Process a directory with the launch counts set to 0 just before;
-    returns (written paths, wall s, CUDA-event ms per image, counts)."""
+def run_session(torch, sess, in_dir, out_dir, **kw):
+    """Process a directory (``kw``: process's options) with the launch
+    counts set to 0 just before; returns (written paths, wall s,
+    CUDA-event ms per image, counts)."""
     events = time_stage(torch, sess)
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    written = sess.process(in_dir, out_dir, verbose=False)
+    written = sess.process(in_dir, out_dir, verbose=False, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return sorted(written), wall, [a.elapsed_time(b) for a, b in events], read_counts()
@@ -1064,7 +1090,7 @@ def phase_zoo(dev, work, main):
         ckpt = os.path.join(work, f"4x_synth_{name}.pth")
         torch.save(make(torch, seed=50 + i), ckpt)
         sess = InferenceSession(ckpt, compute_dtype=torch.bfloat16, tile_mode="auto")
-        model, runner = sess.stage.model, sess.stage.runner
+        model, runner = sess.stages[0].model, sess.stages[0].runner
         got = {k: model.cfg.get(k) for k in want}
         if model.name != kind or got != want or model.scale != 4:
             fail(f"auto-detection read the {name} checkpoint as {model.name} {model.cfg}")
@@ -1077,7 +1103,7 @@ def phase_zoo(dev, work, main):
         if name == "srresnet" and mode == "hybrid":
             fail("SRResNet's auto run went hybrid: its trunk runs no port kernel")
         sess32 = InferenceSession(ckpt, compute_dtype=torch.float32, tile_mode="auto")
-        params32 = sess32.stage.params
+        params32 = sess32.stages[0].params
         written32, wall32, ms32, _ = run_session(torch, sess32, main["in_dir"], out32)
         dbs = []
         for (n, (h, w)), a, b in zip(main["sizes"].items(), written, written32):
@@ -1196,7 +1222,7 @@ def phase_ts(dev, work, main):
     src = os.path.join(main["in_dir"], f"{name}.png")
     os.symlink(src, os.path.join(in_dir, f"{name}.png"))
     sess = InferenceSession(path, arch="ts", tile_mode="auto")
-    stage = sess.stage
+    stage = sess.stages[0]
     if stage.model.scale != 4 or sess.compute_dtype != torch.float32:
         fail(f"TorchScript stage probed scale {stage.model.scale}, compute {sess.compute_dtype}")
     written, wall, ms, counts = run_session(torch, sess, in_dir, os.path.join(work, "ts_out"))
@@ -1223,6 +1249,252 @@ def phase_ts(dev, work, main):
     return {"ms": ms[0], "wall": wall}
 
 
+def synth_unet_state(torch, seed, num_downs=8, ngf=64):
+    """A pix2pix UNet generator (``--netG unet_256``: batch norm, so the
+    convs under a norm have no bias; deconv) in the reference's nested
+    key layout, with the running statistics and ``num_batches_tracked``
+    a trained checkpoint holds (tools/synth_params.py's unet_state)."""
+    m = SynthState(torch, seed)
+    outer = [3, ngf, ngf * 2, ngf * 4] + [ngf * 8] * (num_downs - 4)
+    inner = [ngf, ngf * 2, ngf * 4, ngf * 8] + [ngf * 8] * (num_downs - 4)
+
+    def bn(key, c):
+        m.batch_norm(key, c)
+        m.state[f"{key}.num_batches_tracked"] = torch.tensor(1000)
+
+    pre = "model.model"
+    for lv in range(num_downs):
+        if lv == 0:
+            m.conv(f"{pre}.0", inner[0], outer[0], k=4, bias=False)
+            m.deconv(f"{pre}.3", inner[0] * 2, 3, k=4)
+        elif lv == num_downs - 1:
+            m.conv(f"{pre}.1", inner[lv], outer[lv], k=4, bias=False)
+            m.deconv(f"{pre}.3", inner[lv], outer[lv], k=4, bias=False)
+            bn(f"{pre}.4", outer[lv])
+        else:
+            m.conv(f"{pre}.1", inner[lv], outer[lv], k=4, bias=False)
+            m.deconv(f"{pre}.5", inner[lv] * 2, outer[lv], k=4, bias=False)
+            bn(f"{pre}.2", inner[lv])
+            bn(f"{pre}.6", outer[lv])
+        pre += ".1.model" if lv == 0 else ".3.model"
+    return m.state
+
+
+def synth_wbc_state(torch, seed, nf=32):
+    """The White-box Cartoonization generator (tools/synth_params.py's
+    wbc_state), He-uniform: with no norm and 13 convs in a row the
+    1/(3 fan_in) init would shrink the signal to its biases."""
+    m = SynthState(torch, seed)
+    he = math.sqrt(6.0)
+    for key, o, i, k in (("conv", nf, 3, 7), ("conv_1", nf, nf, 3), ("conv_2", nf * 2, nf, 3),
+                         ("conv_3", nf * 2, nf * 2, 3), ("conv_4", nf * 4, nf * 2, 3)):
+        m.conv(key, o, i, k=k, gain=he)
+    for b in range(4):
+        m.conv(f"block_{b}.conv1", nf * 4, nf * 4, gain=he)
+        m.conv(f"block_{b}.conv2", nf * 4, nf * 4)
+    for key, o, i, k in (("conv_5", nf * 2, nf * 4, 3), ("conv_6", nf * 2, nf * 2, 3),
+                         ("conv_7", nf, nf * 2, 3), ("conv_8", nf, nf, 3), ("conv_9", 3, nf, 7)):
+        m.conv(key, o, i, k=k, gain=he)
+    return m.state
+
+
+def u8_close(a, b) -> float:
+    """The share of u8 values within one level."""
+    import numpy as np
+
+    return float((np.abs(np.asarray(a, np.int32) - np.asarray(b, np.int32)) <= 1).mean())
+
+
+def phase_i2i(dev, work, main):
+    """pix2pix UNet and WBC through the session with their presets, a
+    wbc+wbc chain, -cf on the zoo's SRResNet, and the device filters
+    alone, card vs CPU."""
+    import numpy as np
+    import torch
+
+    from innfer_tpu_torch import pipeline
+    from innfer_tpu_torch.io import images as iio
+    from innfer_tpu_torch.ops.filters import color_fix, guided_filter
+    from innfer_tpu_torch.pipeline import InferenceSession, np2tensor
+
+    names = list(main["sizes"])
+    src = {n: os.path.join(main["in_dir"], f"{n}.png") for n in names}
+    gf_calls = []
+    gf = pipeline.guided_filter
+
+    def counted_gf(*a, **k):
+        gf_calls.append(1)
+        return gf(*a, **k)
+
+    pipeline.guided_filter = counted_gf
+
+    def warm_twice(sess, in_dir, out_dir, label, **kw):
+        """Process ``in_dir`` twice: the first pass carries cuDNN's set-up
+        for each new shape, the second is the steady state.  Every
+        kernel's launches must stay 0 in both; returns the written paths,
+        the second pass's wall and ms per image, and the first's ms."""
+        cold = run_session(torch, sess, in_dir, out_dir, **kw)
+        warm = run_session(torch, sess, in_dir, out_dir, **kw)
+        for run in (cold, warm):
+            if any(run[3].values()):
+                fail(f"{label} launched a port kernel: {run[3]}")
+        return warm[0], warm[1], warm[2], cold[2]
+
+    def session_pair(ckpt, in_dir, label, want_hw, **kw):
+        """bf16 and fp32 sessions over ``in_dir``, each run twice
+        (``warm_twice``); u8 PNGs of the wanted shapes, not flat; returns
+        the fp32 session, the warm ms per image of both, walls and bf16 vs
+        fp32 dB.  Prints the first pass's ms."""
+        out = {}
+        for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            sess = InferenceSession(ckpt, compute_dtype=dt, **kw)
+            if any(st.chop for st in sess.stages):
+                fail(f"{label}: the preset tiles the image; it must run whole")
+            written, wall, ms, cold = warm_twice(sess, in_dir,
+                                                 os.path.join(work, f"{label}_{tag}"),
+                                                 f"{label} {tag}")
+            print(f"[i2i] {label} {tag} first pass (cuDNN set-up of new shapes): "
+                  f"{', '.join(f'{t:.2f}' for t in cold)} ms per image", flush=True)
+            out[tag] = (sess, written, wall, ms)
+        dbs = []
+        for a, b, hw in zip(out["bf16"][1], out["fp32"][1], want_hw):
+            x, y = iio.read_img(a), iio.read_img(b)
+            if x is None or x.shape != hw + (3,) or x.dtype != np.uint8:
+                fail(f"{a}: expected a {hw + (3,)} uint8 PNG")
+            if x.std() < 1.0:
+                fail(f"{a}: the output is flat (std {x.std():.3f})")
+            dbs.append(psnr(x, y, 255.0))
+        if min(dbs) < ZOO_BF16_DB:
+            fail(f"{label}: bf16 vs fp32 u8 PSNR {min(dbs):.1f} dB < {ZOO_BF16_DB}")
+        return out["fp32"][0], out["bf16"][3], out["fp32"][3], out["bf16"][2], \
+            out["fp32"][2], dbs
+
+    def report(label, shapes, ms16, ms32, wall16, wall32, dbs, db32, crop, extra=""):
+        print(f"[i2i] {label}: second pass, bf16 CUDA events per image "
+              f"{', '.join(f'{s} {t:.2f} ms' for s, t in zip(shapes, ms16))}, wall "
+              f"{wall16:.3f} s; fp32 {', '.join(f'{t:.2f}' for t in ms32)} ms, wall "
+              f"{wall32:.3f} s; bf16 vs fp32 u8 PSNR {', '.join(f'{d:.1f}' for d in dbs)} dB "
+              f"(bar {ZOO_BF16_DB}); fp32 card vs CPU {crop} {db32:.1f} dB (bar {ZOO_FP32_DB}); "
+              f"kernel launches 0{extra}", flush=True)
+        if db32 < ZOO_FP32_DB:
+            fail(f"{label}: fp32 card vs CPU PSNR {db32:.1f} dB < {ZOO_FP32_DB}")
+
+    # pix2pix unet_256: linear_resize to multiples of 256, train-mode BN
+    p2p_in = os.path.join(work, "p2p_in")
+    os.makedirs(p2p_in)
+    for n in names:
+        os.symlink(src[n], os.path.join(p2p_in, f"{n}.png"))
+    iio.save_img(synth_image(256, 256, seed=12), os.path.join(p2p_in, "c_256x256.png"))
+    ckpt = os.path.join(work, "p2p_synth_unet256.pth")
+    torch.save(synth_unet_state(torch, seed=80), ckpt)
+    want = [tuple(-(-s // 256) * 256 for s in main["sizes"][n]) for n in names] + [(256, 256)]
+    sess32, ms16, ms32, wall16, wall32, dbs = session_pair(ckpt, p2p_in, "pix2pix", want,
+                                                           arch="unet_256")
+    model = sess32.stages[0].model
+    if (model.cfg["num_downs"], model.cfg["ngf"], model.cfg["meval"]) != (8, 64, False):
+        fail(f"the pix2pix session built {model.cfg}")
+    if sess32.presets.resize != 256 or not sess32.presets.normalize:
+        fail(f"the pix2pix preset is {sess32.presets}")
+    x = np2tensor(iio.read_img(os.path.join(p2p_in, "c_256x256.png")), normalize=True,
+                  device=dev)
+    db32 = card_vs_cpu_db(torch, model, sess32.stages[0].params, x)
+    report("pix2pix unet_256 ngf=64, train-mode BN, linear_resize 256",
+           [f"{h}x{w}" for h, w in want], ms16, ms32, wall16, wall32, dbs, db32, "(1,256,256,3)")
+
+    # WBC, pt and tf checkpoints by their names, on the main path's PNGs
+    crop = np2tensor(iio.read_img(src[names[0]])[:64, :64], normalize=True, device=dev)
+    for i, mode in enumerate(("pt", "tf")):
+        ckpt = os.path.join(work, "wbc_synth.pth" if mode == "pt" else "wbc_tf_synth.pth")
+        torch.save(synth_wbc_state(torch, seed=81 + i), ckpt)
+        del gf_calls[:]
+        sess32, ms16, ms32, wall16, wall32, dbs = session_pair(
+            ckpt, main["in_dir"], f"wbc_{mode}", [main["sizes"][n] for n in names])
+        model = sess32.stages[0].model
+        if (model.cfg["mode"], model.cfg["nf"], sess32.presets.use_guided_filter) != (mode, 32, True):
+            fail(f"the WBC {mode} session built {model.cfg} with {sess32.presets}")
+        if len(gf_calls) != 4 * len(names):  # bf16 and fp32, two passes each
+            fail(f"WBC {mode}: the guided filter ran {len(gf_calls)} times for "
+                 f"{4 * len(names)} images")
+        db32 = card_vs_cpu_db(torch, model, sess32.stages[0].params, crop)
+        report(f"WBC {mode} nf=32, modcrop 4, guided filter r=1 eps=5e-3", names, ms16, ms32,
+               wall16, wall32, dbs, db32, "(1,64,64,3)")
+
+    # a wbc+wbc chain at 540x960: two stages, the guided filter after each
+    chain_in = os.path.join(work, "chain_in")
+    os.makedirs(chain_in)
+    os.symlink(src[names[0]], os.path.join(chain_in, f"{names[0]}.png"))
+    second = os.path.join(work, "wbc_b_synth.pth")
+    torch.save(synth_wbc_state(torch, seed=83), second)
+    models = os.path.join(work, "wbc_synth.pth") + "+" + second
+    del gf_calls[:]
+    sess32, ms16, ms32, wall16, wall32, dbs = session_pair(
+        models, chain_in, "chain", [main["sizes"][names[0]]])
+    if len(sess32.stages) != 2 or len(gf_calls) != 8:
+        fail(f"the wbc+wbc chain ran {len(sess32.stages)} stages and {len(gf_calls)} "
+             "guided filters for one image in two sessions of two passes")
+    print(f"[i2i] wbc+wbc chain (two pt models) at "
+          f"{names[0]}, second pass: bf16 {ms16[0]:.2f} ms between CUDA events, wall {wall16:.3f} s; "
+          f"fp32 {ms32[0]:.2f} ms, wall {wall32:.3f} s; 2 stages, 2 guided filters per image; "
+          f"bf16 vs fp32 u8 PSNR {dbs[0]:.1f} dB (bar {ZOO_BF16_DB}); kernel launches 0",
+          flush=True)
+    pipeline.guided_filter = gf
+
+    # -cf on the zoo's 4x SRResNet at 540x960: color_fix's bicubic down/up
+    sr_ckpt = os.path.join(work, "4x_synth_srresnet.pth")
+    sess = InferenceSession(sr_ckpt, compute_dtype=torch.bfloat16, tile_mode="auto")
+    written, wall, ms, cold = warm_twice(sess, chain_in, os.path.join(work, "cf_out"), "-cf",
+                                         use_color_fix=True)
+    img_in = iio.read_img(src[names[0]])
+    plain = iio.read_img(os.path.join(work, "zoo_srresnet_bf16", f"{names[0]}.png"))
+    fixed = iio.read_img(written[0])
+    h, w = main["sizes"][names[0]]
+    if fixed is None or fixed.shape != (4 * h, 4 * w, 3):
+        fail(f"-cf wrote no ({4 * h}, {4 * w}, 3) PNG")
+    ref_u8, out_u8 = torch.from_numpy(img_in), torch.from_numpy(plain)
+    cf_cpu = color_fix(ref_u8, out_u8)
+    share_cf = u8_close(fixed, cf_cpu)
+    print(f"[i2i] -cf on the 4x SRResNet at {names[0]}, bf16: {ms[0]:.2f} ms between CUDA "
+          f"events (the model; first pass {cold[0]:.2f}), wall {wall:.3f} s (color_fix on the "
+          f"card included); output vs "
+          f"color_fix on the CPU of the [zoo] run's PNG: {100 * share_cf:.4f}% within 1 level "
+          f"(bar 99.9%); kernel launches 0", flush=True)
+    if share_cf < 0.999:
+        fail(f"-cf output within one level of the CPU's color_fix in {share_cf:.5f} < 0.999")
+
+    # the device filters alone, card vs CPU on the same inputs
+    x = np2tensor(img_in, normalize=True)
+    y = torch.clamp(x + 0.1 * torch.randn(x.shape, generator=torch.Generator().manual_seed(84)),
+                    -1, 1)
+    gf32 = [guided_filter(x.to(d), y.to(d), r=1, eps=5e-3).cpu() for d in (dev, "cpu")]
+    db_gf = psnr(gf32[0], gf32[1], max(1.0, gf32[1].abs().max().item()))
+    x16, y16 = x.bfloat16(), y.bfloat16()
+    gf16 = [pipeline._postprocess_u8(guided_filter(x16.to(d), y16.to(d), r=1, eps=5e-3),
+                                     denormalize=True).cpu() for d in (dev, "cpu")]
+    share_gf = u8_close(*gf16)
+    share_cf = u8_close(color_fix(ref_u8.to(dev), out_u8.to(dev)).cpu(), cf_cpu)
+    xd, yd, x16d, y16d = x.to(dev), y.to(dev), x16.to(dev), y16.to(dev)
+    rd, od = ref_u8.to(dev), out_u8.to(dev)
+    t_gf32 = cuda_ms(lambda: guided_filter(xd, yd, r=1, eps=5e-3), reps=5)
+    t_gf16 = cuda_ms(lambda: guided_filter(x16d, y16d, r=1, eps=5e-3), reps=5)
+    t_cf = cuda_ms(lambda: color_fix(rd, od), reps=5)
+    big = iio.read_img(src[names[-1]])
+    share_lr = u8_close(iio.linear_resize(big, 256, device=dev), iio.linear_resize(big, 256))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iio.linear_resize(big, 256, device=dev)  # u8 up, u8 back: a host wall time
+    t_lr = (time.perf_counter() - t0) * 1e3
+    print(f"[i2i] guided_filter r=1 eps=5e-3 on {tuple(x.shape)}: fp32 card vs CPU "
+          f"{db_gf:.1f} dB (bar {ZOO_FP32_DB}), {t_gf32:.3f} ms on the card; bf16 u8 "
+          f"{100 * share_gf:.4f}% within 1 level (bar 99.9%), {t_gf16:.3f} ms; color_fix "
+          f"{tuple(ref_u8.shape)} -> {tuple(out_u8.shape)} u8 card vs CPU {100 * share_cf:.4f}% "
+          f"within 1 level (bar 99.9%), {t_cf:.3f} ms; linear_resize {big.shape} -> 256 "
+          f"multiples u8 card vs CPU {100 * share_lr:.4f}% within 1 level (bar 99.9%), "
+          f"{t_lr:.2f} ms wall on the card", flush=True)
+    if db_gf < ZOO_FP32_DB or min(share_gf, share_cf, share_lr) < 0.999:
+        fail(f"a device filter disagrees with the CPU: guided filter {db_gf:.1f} dB, "
+             f"bf16 {share_gf:.5f}, color_fix {share_cf:.5f}, linear_resize {share_lr:.5f}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "innfer_tpu_torch")):
         fail("innfer_tpu_torch/ is not beside chip_smoke.py: run it from a checkout")
@@ -1242,6 +1514,7 @@ def main() -> int:
             rb["launches"] = phase_cyclegan(dev, work)
             phase_zoo(dev, work, main)
             phase_ts(dev, work, main)
+            phase_i2i(dev, work, main)
     rdb_src = "innfer_tpu_torch/ops/csrc/rdb.cu"
     kernels = [
         {"name": "fused_rdb", "route": "cuda", "source": rdb_src,

@@ -3,9 +3,7 @@ inference from state dicts.
 
 The port's own copy of ``innfer_tpu/checkpoint/detect.py`` (reference
 run.py:50-165).  Detection reads only key names and ``.shape``, so it takes
-torch tensors or numpy arrays.  Every family is fingerprinted; WBC's
-hyperparameters wait for its slice of the port and raise
-``NotImplementedError``.
+torch tensors or numpy arrays.
 """
 from __future__ import annotations
 
@@ -18,9 +16,6 @@ from innfer_tpu_torch.checkpoint.remaps import mod_to_normal
 from innfer_tpu_torch.config.defaults import get_network_config
 
 StateDict = Dict[str, Any]
-
-# families fingerprinted but not yet ported, by ROADMAP.md queue-A item
-_LATER = {"wbcunet": "A14 (WBC)"}
 
 
 def load_checkpoint(path: str) -> StateDict:
@@ -73,13 +68,10 @@ def infer_params(arch: str, state: StateDict, scale: Optional[int] = None,
       * scale = 2 ** (count of ``model.<n>.weight`` convs with n > 6)
       * out_nc from the highest-index conv, nf/in_nc from ``model.0``
       * plus  = any ``conv1x1`` key (ESRGAN+)
+    wbcunet: scale 1, pt mode, nf from ``conv``.
     ppon and pan: nb, nf, out_nc and scale from key names and shapes (the
     reference falls back to library defaults for these, run.py:157-163).
     """
-    if arch in _LATER:
-        raise NotImplementedError(
-            f"{arch} checkpoints are not ported to innfer_tpu_torch yet "
-            f"(ROADMAP.md queue {_LATER[arch]})")
     if arch in ("esrgan", "srgan"):
         scale2x = 0
         top_layer = 0
@@ -111,6 +103,9 @@ def infer_params(arch: str, state: StateDict, scale: Optional[int] = None,
         net = {"type": arch, "in_nc": in_nc, "out_nc": out_nc, "nf": nf, "nb": nb}
         if arch == "esrgan":
             net["plus"] = plus
+    elif arch == "wbcunet":
+        scale = 1
+        net = {"type": arch, "mode": "pt", "nf": int(state["conv.weight"].shape[0])}
     elif arch == "ppon":
         nb = 1 + max(int(k.split(".")[3]) for k in state
                      if k.startswith("CFEM.1.sub.") and ".RB" in k)

@@ -1,10 +1,10 @@
-"""Network-config normalizer: alias resolution + RRDB hyperparameter defaults.
+"""Network-config normalizer: alias resolution + per-arch hyperparameter
+defaults.
 
-The port's own copy of ``innfer_tpu/config/defaults.py`` for the families
-this port runs so far (RRDBNet, mESRGAN, SRResNet, PPON, PAN, CycleGAN
-ResNet); the reference is ``get_network_G_config`` (utils/defaults.py:
-3-148).  The other families' aliases resolve so the model registry can
-name them in its error.
+The port's own copy of ``innfer_tpu/config/defaults.py``; the reference is
+``get_network_G_config`` (utils/defaults.py:3-148): the same alias sets
+and defaults (esrgan-lite nf/nb, evsrgan Conv3D, unet_128/p2p_128 seven
+downs, resnet_6/9 n_blocks, the wbcunet tf mode).
 """
 from __future__ import annotations
 
@@ -112,6 +112,19 @@ def get_network_config(network: Union[str, Dict[str, Any]], scale: int) -> Dict[
             self_attention=pop("self_attention", True),
             double_scpa=pop("double_scpa", False),
             ups_inter_mode=pop("ups_inter_mode", "nearest"),
+        )
+    elif canon == "wbcunet_net":
+        cfg.update(nf=pop("nf", 32))
+        cfg["mode"] = "tf" if "tf" in kind else pop("mode", "pt")
+    elif canon == "unet_net":
+        cfg.update(
+            input_nc=pop("in_nc", 3),
+            output_nc=pop("out_nc", 3),
+            num_downs=pop("num_downs", 7 if kind in ("unet_128", "p2p_128") else 8),
+            ngf=pop("ngf", 64),
+            norm_type=pop("norm_type", "batch"),
+            use_dropout=pop("use_dropout", False),
+            upsample_mode=pop("upsample_mode", "deconv"),
         )
     elif canon == "resnet_net":
         if kind in ("resnet_6blocks", "resnet_6", "cg_6"):

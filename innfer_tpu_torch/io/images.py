@@ -1,9 +1,13 @@
-"""Host-side image I/O and directory scanning: the port's subset of
-``innfer_tpu/io/images.py`` (reference utils/utils.py:17-133, 251-264).
+"""Host-side image I/O, directory scanning and the geometry helpers
+modcrop and linear_resize: the port's counterpart of
+``innfer_tpu/io/images.py`` (reference utils/utils.py:17-133, 251-275).
 
 Images are numpy HWC BGR uint8/uint16, as OpenCV keeps them.  OpenCV is
 the codec where it can be imported; elsewhere the stdlib PNG codec
-(io/png.py) reads and writes 8-bit PNG, and other formats raise.
+(io/png.py) reads and writes 8-bit PNG, and other formats raise.  The
+resizes need no OpenCV: ``linear_resize`` runs the port's bicubic
+(``nn/resize.interpolate``) on a torch device, and ``merge_imgs`` indexes
+the nearest rows and columns.
 """
 from __future__ import annotations
 
@@ -12,8 +16,11 @@ import os.path as osp
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from innfer_tpu_torch.io import png
+from innfer_tpu_torch.nn import resize as R
+from innfer_tpu_torch.ops import colors
 
 try:
     import cv2
@@ -99,3 +106,44 @@ def modcrop(img: np.ndarray, scale: int) -> np.ndarray:
     """Crop H, W down to multiples of ``scale`` (utils.py:251-264)."""
     h, w = img.shape[:2]
     return img[: h - h % scale, : w - w % scale, ...]
+
+
+def merge_imgs(img_list) -> np.ndarray:
+    """Concatenate side by side, nearest-upscaling the smaller entries to
+    the largest height and width (reference utils.py:98-117), with the
+    source index floor(dst * in / out) of ``cv2.INTER_NEAREST``."""
+    if isinstance(img_list, np.ndarray):
+        return img_list
+    if not isinstance(img_list, list):
+        raise NotImplementedError("img_list should be a list of HWC images")
+    max_h = max(im.shape[0] for im in img_list)
+    max_w = max(im.shape[1] for im in img_list)
+    return np.concatenate(
+        [im[R.nearest_table(max_h, im.shape[0])][:, R.nearest_table(max_w, im.shape[1])]
+         for im in img_list], axis=1)
+
+
+def save_img_comp(img_list, img_path: str) -> None:
+    save_img(merge_imgs(img_list), img_path)
+
+
+def linear_resize(img: np.ndarray, st: int = 256,
+                  device: Optional[torch.device] = None) -> np.ndarray:
+    """Enlarge H and W to the next multiples of ``st`` through linear
+    light (reference utils.py:267-275): sRGB -> linear, bicubic, linear ->
+    sRGB uint8 (the cast truncates), computed in fp32 on ``device`` (the
+    CPU by default; the session passes its own, so only u8 pixels cross
+    the bus).  An image whose sides are already multiples is returned as
+    it is.
+
+    The bicubic is ``nn/resize.interpolate`` (A = -0.75, half-pixel
+    centres, clamped border), which is what the JAX package's
+    ``cv2.INTER_CUBIC`` computes when it enlarges."""
+    h, w = img.shape[:2]
+    if h % st == 0 and w % st == 0:
+        return img
+    oh, ow = -(-h // st) * st, -(-w // st) * st
+    x = torch.from_numpy(np.ascontiguousarray(img)).to(device).reshape(h, w, -1)
+    linear = R.interpolate(colors.srgb_to_linear(x)[None], size=(oh, ow), mode="bicubic",
+                           align_corners=False)[0]
+    return colors.linear_to_srgb(linear).reshape((oh, ow) + img.shape[2:]).cpu().numpy()

@@ -41,6 +41,11 @@ def load_model(
     state = swa_to_normal(load_checkpoint(path))
     if arch == "infer":
         _family, cfg, state = detect_and_infer(state, scale=scale)
+    elif "wbcunet" in arch:
+        # wbcunet_tf names the TF-trained padding and upsampling
+        mode = "tf" if "_tf" in arch else "pt"
+        cfg = get_network_config({"type": arch.replace("_tf", ""), "mode": mode},
+                                 scale if scale else 1)
     else:
         cfg = get_network_config({"type": arch}, scale if scale else 1)
     if backend is not None:

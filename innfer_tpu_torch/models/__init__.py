@@ -1,9 +1,9 @@
 """Architecture factory: full config dict -> ModelDef.
 
 The port's registry over the reference's types (architectures/__init__.py:
-5-40).  RRDBNet, mESRGAN, SRResNet, PPON, PAN and the CycleGAN ResNet run;
-the other families raise ``NotImplementedError`` naming the slice of the
-port that brings them.
+5-40): RRDBNet, mESRGAN, SRResNet, PPON, PAN, the pix2pix UNet, the
+CycleGAN ResNet and WBC.  evsrgan (RRDBNet with Conv3D) raises in
+``rrdb.build``, naming the slice of the port that brings it.
 """
 from __future__ import annotations
 
@@ -12,12 +12,6 @@ from typing import Any, Dict
 from innfer_tpu_torch.models.base import (ModelDef, ParamDict, Params,  # noqa: F401
                                           cast_params, convert_state,
                                           params_from_jax)
-
-# ROADMAP.md queue-A item of each family not ported yet
-_LATER = {
-    "unet_net": "A13 (pix2pix UNet)",
-    "wbcunet_net": "A14 (WBC)",
-}
 
 
 def get_network(cfg: Dict[str, Any]) -> ModelDef:
@@ -48,8 +42,12 @@ def get_network(cfg: Dict[str, Any]) -> ModelDef:
         from innfer_tpu_torch.models import resnet
 
         return resnet.build(cfg)
-    if kind in _LATER:
-        raise NotImplementedError(
-            f"Model [{kind}] is not ported to innfer_tpu_torch yet "
-            f"(ROADMAP.md queue {_LATER[kind]})")
+    if kind == "unet_net":
+        from innfer_tpu_torch.models import unet
+
+        return unet.build(cfg)
+    if kind == "wbcunet_net":
+        from innfer_tpu_torch.models import wbc
+
+        return wbc.build(cfg)
     raise NotImplementedError(f"Model [{kind}] not recognized")

@@ -2,7 +2,8 @@
 NHWC layout.
 
 The port's counterpart of ``innfer_tpu/nn/functional.py`` for the ops the
-ESRGAN, CycleGAN, SRResNet, PAN and PPON paths need.  Activations are NHWC tensors, as the JAX package's
+ESRGAN, CycleGAN, SRResNet, PAN, PPON, pix2pix UNet and WBC paths and the
+image filters (``ops/filters.py``) need.  Activations are NHWC tensors, as the JAX package's
 public functions take them; conv weights stay OIHW, as in the checkpoint.
 A contiguous NHWC tensor viewed with ``permute(0, 3, 1, 2)`` is a
 channels-last NCHW tensor, so cuDNN runs on it without a copy.
@@ -97,9 +98,11 @@ def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-           *, stride: int = 1, padding: int = 0, dilation: int = 1,
+           *, stride: int = 1, padding: int = 0, dilation: int = 1, groups: int = 1,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """2D convolution, NHWC x OIHW -> NHWC.  Matches torch.nn.Conv2d.
+    """2D convolution, NHWC x OIHW -> NHWC.  Matches torch.nn.Conv2d;
+    ``groups`` = channels with a (C, 1, kh, kw) weight is the depthwise
+    filter of ``ops/filters.filter2d``.
 
     Weights are cast to the activation dtype; the bias stays fp32 and is
     added to the fp32 accumulator before the one rounding (see the module
@@ -107,7 +110,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     instead, so a caller can go on accumulating across convs.
     """
     return _conv(TF.conv2d, x, w, b, out_dtype=out_dtype, stride=stride,
-                 padding=padding, dilation=dilation)
+                 padding=padding, dilation=dilation, groups=groups)
 
 
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
@@ -156,6 +159,14 @@ def pad2d(x: torch.Tensor, pad: Union[int, Tuple[int, int, int, int]],
     pads = (pad,) * 4 if isinstance(pad, int) else tuple(pad)
     out = TF.pad(nhwc_to_nchw(x), pads, mode="constant" if mode == "zero" else mode)
     return nchw_to_nhwc(out).contiguous()
+
+
+def tf_same_padding(x: torch.Tensor, k_size: int = 3) -> torch.Tensor:
+    """TF-style asymmetric SAME padding before a stride-2 conv (WBC tf
+    mode, reference WBCNet_arch.py:141-143): zeros of (left, right, top,
+    bottom) = (j-1, j, j-1, j) with j = k // 2."""
+    j = k_size // 2
+    return pad2d(x, (j - 1, j, j - 1, j), mode="zero")
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,4 @@
-"""Resize ops, NHWC: the port's copy of ``innfer_tpu/nn/resize.py`` for the
-modes the SR families use (``tf_2x_bilinear`` comes with WBC).
+"""Resize ops, NHWC: the port's copy of ``innfer_tpu/nn/resize.py``.
 
 ``interpolate`` has torch.nn.functional.interpolate's semantics, computed
 as the JAX package computes it: separable 1-D gathers with index and
@@ -9,8 +8,11 @@ the end.  Users in the reference:
   * nearest (integer scale)       -- upconv blocks (block.py:348-361);
   * bilinear, align_corners=True  -- PAN's global input residual
                                      (PAN_arch.py:215-218);
-  * bilinear, align_corners=False -- PAN's bilinear PA upsampling;
-  * bicubic, align_corners=False  -- FSA's restore (block.py:463-466).
+  * bilinear, align_corners=False -- PAN's bilinear PA upsampling, WBC
+                                     pt mode (WBCNet_arch.py:65-68);
+  * bicubic, align_corners=False  -- FSA's restore (block.py:463-466),
+                                     color_fix and linear_resize;
+  * ``tf_2x_bilinear``            -- WBC tf mode (WBCNet_arch.py:127-138).
 """
 from __future__ import annotations
 
@@ -60,7 +62,7 @@ def _cubic_tables(out_size: int, in_size: int, align_corners: bool):
     return np.clip(taps, 0, in_size - 1), wts
 
 
-def _nearest_table(out_size: int, in_size: int) -> np.ndarray:
+def nearest_table(out_size: int, in_size: int) -> np.ndarray:
     """torch 'nearest': src = floor(dst * in / out), clamped."""
     dst = np.arange(out_size, dtype=np.float64)
     return np.minimum(np.floor(dst * (in_size / out_size)).astype(np.int64), in_size - 1)
@@ -99,8 +101,8 @@ def interpolate(x: torch.Tensor, size: Optional[Tuple[int, int]] = None,
     if mode == "nearest":
         if oh % h == 0 and ow % w == 0:
             return x.repeat_interleave(oh // h, dim=1).repeat_interleave(ow // w, dim=2)
-        out = _apply_1d(x, _nearest_table(oh, h), None, dim=1)
-        return _apply_1d(out, _nearest_table(ow, w), None, dim=2)
+        out = _apply_1d(x, nearest_table(oh, h), None, dim=1)
+        return _apply_1d(out, nearest_table(ow, w), None, dim=2)
     ac = bool(align_corners)
     if mode == "bilinear":
         (ih, wh), (iw, ww) = _linear_tables(oh, h, ac), _linear_tables(ow, w, ac)
@@ -115,3 +117,21 @@ def interpolate(x: torch.Tensor, size: Optional[Tuple[int, int]] = None,
 def upsample_nearest(x: torch.Tensor, r: int) -> torch.Tensor:
     """Integer nearest upsample of (B, H, W, C), == interpolate('nearest')."""
     return x.repeat_interleave(r, dim=1).repeat_interleave(r, dim=2)
+
+
+def tf_2x_bilinear(x: torch.Tensor) -> torch.Tensor:
+    """TF-style 2x bilinear upsample of WBC tf-mode checkpoints (reference
+    WBCNet_arch.py:127-138): even taps copy the source, odd taps average
+    with the replicate-padded next pixel.  The add and the multiply by 0.5
+    happen in the activation dtype, as the JAX package computes them."""
+    b, h, w, c = x.shape
+    pad = torch.cat([x, x[:, -1:]], dim=1)
+    pad = torch.cat([pad, pad[:, :, -1:]], dim=2)
+    p00 = pad[:, :-1, :-1]
+    half = torch.tensor(0.5, dtype=x.dtype)
+    e10 = (p00 + pad[:, 1:, :-1]) * half   # next row
+    e01 = (p00 + pad[:, :-1, 1:]) * half   # next column
+    e11 = (p00 + pad[:, 1:, 1:]) * half    # next row and column
+    top = torch.stack([p00, e01], dim=3).reshape(b, h, 2 * w, c)
+    bot = torch.stack([e10, e11], dim=3).reshape(b, h, 2 * w, c)
+    return torch.stack([top, bot], dim=2).reshape(b, 2 * h, 2 * w, c)

@@ -445,3 +445,60 @@ def test_auto_gate_on_card(cuda_device, variant, mode, launches):
     assert runner.last_mode == mode
     assert fused_rdb.launches - before == launches
     assert out.shape == (1, 40 * scale, 56 * scale, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["unet_bn", "wbc_pt", "wbc_tf"])
+def test_i2i_fp32_on_card_matches_cpu(cuda_device, family):
+    """The pix2pix UNet (train-mode batch norm) and WBC in true fp32 on the
+    card against the CPU: >= 80 dB, no kernel launches."""
+    from tools import synth_params as SP
+
+    g = np.random.default_rng(14)
+    if family == "unet_bn":
+        state = SP.unet_state(num_downs=6, ngf=16, seed=1)
+        cfg = get_network_config({"type": "unet_net", "num_downs": 6, "ngf": 16}, 1)
+        cfg["meval"] = False
+        x = g.uniform(-1, 1, (1, 64, 128, 3))
+    else:
+        state = SP.wbc_state(nf=32, seed=2)
+        cfg = get_network_config({"type": "wbcunet", "mode": family[4:]}, 1)
+        x = g.uniform(-1, 1, (1, 36, 44, 3))
+    model = get_network(cfg)
+    x = torch.from_numpy(x.astype(np.float32))
+    outs = []
+    before = fused_rdb.launches, fused_resnet_block.launches
+    for dev in (cuda_device, torch.device("cpu")):
+        with torch.no_grad():
+            outs.append(model.apply(convert_state(model, state, device=dev), x.to(dev)).cpu().numpy())
+    assert (fused_rdb.launches, fused_resnet_block.launches) == before
+    peak = max(1.0, float(np.abs(outs[1]).max()))
+    mse = np.mean((outs[0].astype(np.float64) - outs[1]) ** 2)
+    assert mse == 0 or 10 * np.log10(peak ** 2 / mse) >= 80
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_guided_filter_and_color_fix_on_card_match_cpu(cuda_device, dtype):
+    """The WBC guided filter (r=1, eps=5e-3) and color_fix on the card
+    against the CPU on the same inputs: the fp32 guided filter >= 80 dB
+    (TF32 in its box filters would show in cov_xy), the u8 results within
+    one level in >= 99.9% of values."""
+    from innfer_tpu_torch.ops.filters import color_fix, guided_filter
+
+    g = np.random.default_rng(15)
+    x = torch.from_numpy(g.uniform(-1, 1, (1, 96, 128, 3)).astype(np.float32)).to(dtype)
+    y = torch.from_numpy(g.uniform(-1, 1, (1, 96, 128, 3)).astype(np.float32)).to(dtype)
+    gf = [guided_filter(x.to(d), y.to(d), r=1, eps=5e-3).float().cpu().numpy()
+          for d in (cuda_device, torch.device("cpu"))]
+    if dtype == torch.float32:
+        mse = np.mean((gf[0].astype(np.float64) - gf[1]) ** 2)
+        assert mse == 0 or 10 * np.log10(max(1.0, np.abs(gf[1]).max()) ** 2 / mse) >= 80
+    else:
+        assert (np.abs(gf[0] - gf[1]) <= 2 ** -7 * (np.abs(gf[1]) + 1)).all()
+    ref = torch.from_numpy(g.integers(0, 256, (48, 64, 3), dtype=np.uint8))
+    for out in (torch.from_numpy(g.integers(0, 256, (192, 256, 3), dtype=np.uint8)),
+                torch.from_numpy(g.integers(0, 256, (48, 64, 3), dtype=np.uint8))):
+        a = color_fix(ref.to(cuda_device), out.to(cuda_device)).cpu().numpy().astype(int)
+        b = color_fix(ref, out).numpy().astype(int)
+        assert (np.abs(a - b) <= 1).mean() >= 0.999

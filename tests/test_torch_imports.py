@@ -38,7 +38,8 @@ def test_scan_covers_the_port():
     assert os.path.join(ROOT, "chip_smoke.py") in files
     for module in (("ops", "rdb.py"), ("ops", "resnet_block.py"), ("models", "resnet.py"),
                    ("models", "srresnet.py"), ("models", "pan.py"), ("models", "ppon.py"),
-                   ("compat", "torchscript.py"), ("nn", "resize.py")):
+                   ("compat", "torchscript.py"), ("nn", "resize.py"), ("models", "unet.py"),
+                   ("models", "wbc.py"), ("ops", "filters.py")):
         assert any(f.endswith(os.path.join(*module)) for f in files)
 
 

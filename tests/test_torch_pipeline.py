@@ -87,9 +87,19 @@ def test_write_error_surfaces(ckpt, in_dir, tmp_path):
         sess.process(in_dir, str(blocker / "out"), verbose=False)
 
 
-def test_chains_are_refused(ckpt):
-    with pytest.raises(NotImplementedError, match="chains"):
-        InferenceSession(ckpt + "+" + ckpt, device="cpu")
+def test_chains_are_refused(ckpt, in_dir, tmp_path):
+    """A chain of two 2x ESRGANs ('+' or '>') runs both stages in turn at
+    the scales of their filenames, as the JAX session does; -s does not
+    override a chain's scales."""
+    kw = dict(tile=16, overlap=8, tile_batch=4)
+    JaxSession(f"{ckpt}>{ckpt}", compute_dtype=jnp.float32, **kw).process(
+        in_dir, str(tmp_path / "jax"), verbose=False)
+    sess = InferenceSession(f"{ckpt}+{ckpt}", compute_dtype=torch.float32, device="cpu",
+                            scale=4, **kw)
+    assert [st.model.scale for st in sess.stages] == [2, 2]
+    written = sess.process(in_dir, str(tmp_path / "port"), verbose=False)
+    assert cv2.imread(written[0]).shape == (80, 112, 3)
+    _assert_same_outputs(str(tmp_path / "jax"), str(tmp_path / "port"))
 
 
 def test_fp32_path_requests_no_tf32(monkeypatch):

@@ -59,7 +59,7 @@ def _stage(ts, chop=True, **kw):
     """The session's Stage for an archive (``arch='ts'``), on the CPU."""
     presets = select_presets("ts")
     presets.chop = chop
-    return InferenceSession(ts, presets=presets, device="cpu", **kw).stage
+    return InferenceSession(ts, presets=presets, device="cpu", **kw).stages[0]
 
 
 def _write_png(path, h, w, seed=0):
@@ -134,7 +134,7 @@ def test_session_e2e_sr(tmp_path, arch):
     _write_png(inp / "a.png", 40, 56)
     sess = InferenceSession(ts, arch=arch, compute_dtype=torch.bfloat16, tile=32, overlap=8,
                             device="cpu")
-    assert sess.compute_dtype == torch.float32 and sess.stage.model.scale == 2
+    assert sess.compute_dtype == torch.float32 and sess.stages[0].model.scale == 2
     written = sess.process(str(inp), str(out), verbose=False)
     assert cv2.imread(written[0]).shape == (80, 112, 3)
 

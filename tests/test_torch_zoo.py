@@ -535,7 +535,7 @@ def _session_mode(tmp_path, name, state):
     path = str(tmp_path / f"4x_{name}.pth")
     torch.save({k: torch.as_tensor(v) for k, v in state.items()}, path)
     sess = InferenceSession(path, compute_dtype=torch.float32, tile_mode="auto", device="cpu")
-    return sess.stage.runner.mode_for(1080, 1920, on_cuda=True)
+    return sess.stages[0].runner.mode_for(1080, 1920, on_cuda=True)
 
 
 def test_session_auto_goes_hybrid_only_where_the_trunk_runs_a_kernel(tmp_path):
@@ -567,11 +567,11 @@ def test_session_applies_output_index_on_whole_image_forwards(tmp_path):
     torch.save({k: torch.from_numpy(v) for k, v in state.items()}, path)
     img = np.random.default_rng(9).integers(0, 256, (20, 24, 3), dtype=np.uint8)
     sess = InferenceSession(path, compute_dtype=torch.float32, device="cpu")
-    sess.stage.chop = False
-    assert sess.stage.model.output_index == 2
+    sess.stages[0].chop = False
+    assert sess.stages[0].model.output_index == 2
     out = sess.run_image(img)
     with torch.no_grad():
-        ref = sess.stage.model.apply(sess.stage.params, np2tensor(img))[2]
+        ref = sess.stages[0].model.apply(sess.stages[0].params, np2tensor(img))[2]
     np.testing.assert_array_equal(out, _postprocess_u8(ref).numpy())
 
 
