@@ -8,7 +8,9 @@ version.
 Phases, each printing its lines (any failure exits non-zero, and without
 the final result line):
   1. device   the card's name, the device count and nvidia-smi's name and
-              power limit;
+              power limit; the image codec the port uses (OpenCV or its
+              stdlib PNG codec) and whether cv2 and rawpy import, with
+              their versions;
   2. build    both kernel libraries (ops/csrc/rdb.cu, resnet_block.cu,
               each with the shared ops/csrc/conv3x3_tc.cuh) built at once
               with nvcc (sm_90a); for each, ptxas' registers and spills of
@@ -51,7 +53,9 @@ the final result line):
               within 2^-7 (|ref| + |ref - x| + 1), one bf16 ulp of the sum,
               of h2 and of IN's unit scale); then timed beside its bound,
               the plain version and cuDNN convs + F.instance_norm, with
-              TFLOP/s and share of the bound;
+              TFLOP/s and share of the bound; and at the batched path's
+              shapes (8, 128, 128, 256) and (32, 66, 36, 256), bf16,
+              against the plain version, timed beside the bound;
   7. cyclegan a seeded synthetic CycleGAN resnet_9blocks (ngf=64) state
               dict with legacy InstanceNorm running-stat keys, and seeded
               512x512 and 1080x1920 PNGs, through InferenceSession with the
@@ -97,16 +101,54 @@ the final result line):
               Then guided_filter, color_fix and linear_resize alone, card
               vs CPU: fp32 >= 80 dB, u8 within 1 level in >= 99.9%, with
               their times;
- 11. result   the kernels line (each kernel also with "tflops", its
+ 11. batch    the batched directory path at full width, bf16, each
+              directory processed twice (both passes' wall ms per image
+              and CUDA-event ms per image of the forwards are printed,
+              with the second pass's StageTimers per image):
+              pix2pix unet_256 on 16 seeded 256x256 PNGs and 4 of 540x960
+              (resized to 768x1024) with the CLI's default batch (auto:
+              the groups auto_batch chose are printed) against batch=1,
+              u8 within one level in 100% of values (train-mode batch norm
+              is per image), and 64 of 256x256 in groups of 16
+              (INNFER_MAX_BATCH=16) the same way; WBC nf=32 on 8 PNGs of 540x960 the same way
+              (the guided filter batched); CycleGAN resnet_9blocks ngf=64
+              on 8 PNGs of 512x512 with the default batch, one
+              whole-image stack (9 fused_resnet_block launches at
+              (8,128,128,256)), against the images one at a time whole
+              image (a chop=False session): bf16 >= 40 dB (cuDNN's convs
+              and PyTorch's reductions sum a stack in another order than
+              one image, and instance norm carries a bf16 flip on), fp32
+              within one level in 100%; against batch=1's tiled runs
+              (another computation: per-tile instance norm; printed);
+              the stage's TiledRunner on the 8-image stack (64 tiles in
+              groups of 32: 18 launches against 72) against the
+              per-image tiled runs, the same bars; then the CLI with --metrics against the pix2pix
+              batch=1 outputs (PSNR >= 48.1 dB on every row, the PSNR of
+              every value one level off, or inf), --timing, and --profile
+              (a Chrome trace file must exist);
+ 12. stages   after an untimed warm-up pass (the session's first forwards
+              pack the kernel's weights), the main path's two ESRGAN
+              images, then the same two three times over, through
+              process with StageTimers,
+              INNFER_ENCODE_THREADS=2 and then 0: each stage's total,
+              count and mean (read, image, fetch, encode; "image" times
+              the host's enqueue, within it the forward's enqueue and the
+              pinned copy's start apart; "fetch" waits for the card), the
+              wall, 69 fused_rdb launches per image; then one 4320x7680
+              output encoded alone through io.images.save_img, with the
+              codec's name;
+ 13. result   the kernels line (each kernel also with "tflops", its
               achieved rate, and "bound_share", bound_ms / ms), the card
               line and, last,
               {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Each path (main, chain, cyclegan, zoo, ts, i2i) runs with every kernel's launch
-count set to 0 just before it and read just after; launches made to
-compare a kernel with its plain version are not counted.
+Each path (main, chain, cyclegan, zoo, ts, i2i, batch, stages) runs with
+every kernel's launch count set to 0 just before it and read just after;
+launches made to compare a kernel with its plain version are not counted.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 from concurrent.futures import ThreadPoolExecutor
@@ -240,8 +282,18 @@ def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    from innfer_tpu_torch.io import images as iio
+
+    libs = []
+    for mod in ("cv2", "rawpy"):
+        try:
+            m = __import__(mod)
+            libs.append(f"{mod} {getattr(m, '__version__', '(no version)')}")
+        except ImportError:
+            libs.append(f"{mod} does not import")
     print(f"[device] {kind}; device count {count}; nvidia-smi: {smi}; "
-          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+          f"torch {torch.__version__} cuda {torch.version.cuda}; image codec "
+          f"{iio.codec_name()}; {', '.join(libs)}", flush=True)
     return kind, count, smi
 
 
@@ -724,6 +776,27 @@ def phase_resnet_block(dev):
           f"({row['bound_by']}; {flops / 1e9:.1f} GFLOP), plain {plain_ms:.3f} ms, cuDNN + "
           f"F.instance_norm {library_ms:.3f} ms, {row['tflops']:.1f} TFLOP/s achieved, "
           f"{100 * row['bound_share']:.1f}% of the bound", flush=True)
+
+    # the batched path's shapes: a whole-image stack of eight 512x512
+    # images, and a cross-image group of 32 tiles of 264x144
+    for shape in ((8, 128, 128, c), (32, 66, 36, c)):
+        x = torch.randn(*shape, generator=torch.Generator().manual_seed(34)).to(dev, torch.bfloat16)
+        out = fused_resnet_block(x, w1, b1, w2, b2, packed=packed)
+        ref = resnet_block_reference(x, w1, b1, w2, b2).float()
+        bar = 2.0 ** -7 * (ref.abs() + (ref - x.float()).abs() + 1)
+        worst = ((out.float() - ref).abs() / bar).max().item()
+        db = psnr(out.float().cpu(), ref.cpu(), ref.abs().max().item())
+        del out, ref, bar
+        t = cuda_ms(lambda: fused_resnet_block(x, w1, b1, w2, b2, packed=packed), reps=10)
+        n_px = shape[0] * shape[1] * shape[2]
+        f = 2 * 2 * 9 * c * c * n_px
+        bd = bound(f, 2 * n_px * c * 2 + 2 * 9 * c * c * 2 + 2 * c * 4)
+        print(f"[resnet_block] {shape} bf16 (the batched path): {worst:.2f} of the ulp bar, PSNR "
+              f"{db:.1f} dB (bar {RB_PSNR_DB}); kernel {t:.3f} ms, bound {bd['bound_ms']:.3f} ms, "
+              f"{f / t / 1e9:.1f} TFLOP/s, {100 * bd['bound_ms'] / t:.1f}% of the bound",
+              flush=True)
+        if worst > 1.0 or db < RB_PSNR_DB:
+            fail(f"fused_resnet_block disagrees with resnet_block_reference at {shape}")
     return row
 
 
@@ -769,10 +842,10 @@ def time_stage(torch, sess) -> list:
     (start, end) pair per image."""
     forward, events = sess.forward, []
 
-    def timed(x):
+    def timed(x, **kw):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        out = forward(x)
+        out = forward(x, **kw)
         e1.record()
         events.append((e0, e1))
         return out
@@ -1495,6 +1568,307 @@ def phase_i2i(dev, work, main):
              f"bf16 {share_gf:.5f}, color_fix {share_cf:.5f}, linear_resize {share_lr:.5f}")
 
 
+def u8_diff(a_paths, b_paths) -> tuple:
+    """Over pairs of u8 PNGs of equal shape: the share of values within one
+    level, the largest difference and the PSNR."""
+    import numpy as np
+
+    from innfer_tpu_torch.io import images as iio
+
+    within, total, worst, sq = 0, 0, 0, 0.0
+    for a, b in zip(a_paths, b_paths):
+        x, y = iio.read_img(a), iio.read_img(b)
+        if x is None or y is None or x.shape != y.shape:
+            fail(f"{a} and {b} are not two PNGs of one shape")
+        d = np.abs(x.astype(np.int32) - y.astype(np.int32))
+        within += int((d <= 1).sum())
+        total += d.size
+        worst = max(worst, int(d.max()))
+        sq += float((d.astype(np.float64) ** 2).sum())
+    return within / total, worst, math.inf if sq == 0 else 10 * math.log10(255.0 ** 2 * total / sq)
+
+
+def phase_batch(dev, work):
+    """The batched directory path: auto-batched pix2pix, WBC and CycleGAN
+    through process, the cross-image tile stack through the CycleGAN
+    stage's runner, and the CLI's --metrics, --timing and --profile."""
+    import numpy as np
+    import torch
+
+    from innfer_tpu_torch import cli
+    from innfer_tpu_torch.io import images as iio
+    from innfer_tpu_torch.observability import TRACE_FILE, StageTimers
+    from innfer_tpu_torch.pipeline import (InferenceSession, _postprocess_u8, np2tensor,
+                                           select_presets)
+    from innfer_tpu_torch.tiling.engine import group_chunk
+
+    def write_pngs(name, shapes, seed):
+        d = os.path.join(work, name)
+        os.makedirs(d)
+        for i, (h, w) in enumerate(shapes):
+            iio.save_img(synth_image(h, w, seed=seed + i), os.path.join(d, f"{i:02d}_{h}x{w}.png"))
+        return d
+
+    def twice(sess, in_dir, out_dir, batch):
+        """Process ``in_dir`` twice at ``batch``: the written paths, each
+        pass's wall ms per image and CUDA-event ms of the forwards per
+        image, the second pass's launch counts, the group sizes run and
+        the second pass's StageTimers ms per image."""
+        groups, real = [], sess.run_batch
+
+        def spy(imgs, **kw):
+            groups.append(len(imgs))
+            return real(imgs, **kw)
+
+        sess.run_batch = spy
+        timers = StageTimers()
+        try:
+            runs = [run_session(torch, sess, in_dir, out_dir, batch=batch, timers=t)
+                    for t in (None, timers)]
+        finally:
+            del sess.run_batch
+        n = len(runs[1][0])
+        stages = ", ".join(f"{k} {1e3 * v['total_s'] / n:.2f}"
+                           for k, v in sorted(timers.report().items()))
+        return (runs[1][0], [1e3 * r[1] / n for r in runs], [sum(r[2]) / n for r in runs],
+                runs[1][3], groups[: len(groups) // 2], stages)
+
+    def ms(pair):
+        return " / ".join(f"{t:.2f}" for t in pair)
+
+    def batched_vs_single(label, sess, in_dir, shapes, bar="(bar 100%)"):
+        """The CLI's default batch against batch=1 on one session."""
+        batch = cli.resolve_batch(0, sess.presets)
+        targets = {hw: sess.auto_batch(hw + (3,)) for hw in shapes}
+        got_b, wall_b, ev_b, counts_b, groups, st_b = twice(
+            sess, in_dir, os.path.join(work, f"{label}_b"), batch)
+        got_1, wall_1, ev_1, counts_1, _, st_1 = twice(
+            sess, in_dir, os.path.join(work, f"{label}_1"), 1)
+        share, worst, db = u8_diff(got_b, got_1)
+        print(f"[batch] {label}: {len(got_b)} images, batch={batch} (auto): auto_batch chose "
+              f"{', '.join(f'{h}x{w} -> {n}' for (h, w), n in targets.items())}, groups run "
+              f"{groups}; ms per image (first / second pass) wall {ms(wall_b)}, forward CUDA "
+              f"events {ms(ev_b)}; batch=1 wall {ms(wall_1)}, events {ms(ev_1)}; second pass's "
+              f"stages, ms per image: batched {st_b}; batch=1 {st_1}; u8 vs batch=1 "
+              f"{100 * share:.4f}% within one level {bar}, max diff {worst}, PSNR {db:.1f} dB",
+              flush=True)
+        return got_b, got_1, share, counts_b, counts_1, groups
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # pix2pix unet_256 (the [i2i] phase's checkpoint): 16 at 256x256, 4 at
+    # 540x960 enlarged to 768x1024 by the preset
+    p2p_in = write_pngs("batch_p2p_in", [(256, 256)] * 16 + [(540, 960)] * 4, seed=100)
+    p2p = InferenceSession(os.path.join(work, "p2p_synth_unet256.pth"), arch="unet_256",
+                           compute_dtype=bf16)
+    _, p2p_single, share, cb, c1, groups = batched_vs_single(
+        "pix2pix unet_256 ngf=64", p2p, p2p_in, [(256, 256), (768, 1024)])
+    if sorted(groups) != [4, 16] or any(cb.values()) or any(c1.values()) or share < 1.0:
+        fail(f"pix2pix batched: groups {groups}, launches {cb} / {c1}, u8 share {share}")
+
+    # a longer directory, where full groups flush while later images decode:
+    # 64 at 256x256 in groups of 16 (INNFER_MAX_BATCH)
+    long_in = write_pngs("batch_p2p_long_in", [(256, 256)] * 64, seed=140)
+    os.environ["INNFER_MAX_BATCH"] = "16"
+    try:
+        _, _, share, cb, c1, groups = batched_vs_single(
+            "pix2pix unet_256 ngf=64, 64 images, INNFER_MAX_BATCH=16", p2p, long_in, [(256, 256)])
+    finally:
+        del os.environ["INNFER_MAX_BATCH"]
+    if groups != [16] * 4 or any(cb.values()) or share < 1.0:
+        fail(f"pix2pix long directory: groups {groups}, launches {cb}, u8 share {share}")
+
+    # WBC nf=32, pt (the [i2i] phase's checkpoint): 8 at 540x960
+    wbc_in = write_pngs("batch_wbc_in", [(540, 960)] * 8, seed=120)
+    wbc = InferenceSession(os.path.join(work, "wbc_synth.pth"), compute_dtype=bf16)
+    _, _, share, cb, c1, groups = batched_vs_single("WBC pt nf=32", wbc, wbc_in, [(540, 960)])
+    if groups != [8] or any(cb.values()) or any(c1.values()) or share < 1.0:
+        fail(f"WBC batched: groups {groups}, launches {cb} / {c1}, u8 share {share}")
+
+    # CycleGAN resnet_9blocks ngf=64 (the [cyclegan] phase's checkpoint):
+    # 8 at 512x512 run as one whole-image stack.  Against the same images
+    # one at a time whole image: bf16 at the kernel-vs-torch-path bar (the
+    # other convs and the norms' reductions of cuDNN and PyTorch sum a
+    # stack of 8 in another order than one image, and instance norm
+    # carries a bf16 flip on), fp32 within one level in 100%
+    cg_in = write_pngs("batch_cg_in", [(512, 512)] * 8, seed=130)
+    cg_ckpt = os.path.join(work, "cyclegan9_synth.pth")
+    whole_p = select_presets("resnet_9blocks")
+    whole_p.chop = False
+    want = {"fused_rdb": 0, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0}
+    cg = {}
+    for dt in (bf16, fp32):
+        sess = InferenceSession(cg_ckpt, arch="resnet_9blocks", compute_dtype=dt,
+                                tile_mode="auto")
+        whole = InferenceSession(cg_ckpt, arch="resnet_9blocks", presets=whole_p,
+                                 compute_dtype=dt)
+        tag = str(dt)[6:]
+        if dt == bf16:
+            got_b, _, share_tiled, cb, c1, groups = batched_vs_single(
+                "CycleGAN resnet_9blocks ngf=64", sess, cg_in, [(512, 512)],
+                bar="(another computation: batch=1 runs tiles, with per-tile instance norm)")
+            got_w, wall_w, ev_w, cw, _, st_w = twice(whole, cg_in,
+                                                     os.path.join(work, "cg_whole_1"), 1)
+        else:
+            got_b, _, ev_b, cb = run_session(torch, sess, cg_in, os.path.join(work, "cg32_b"),
+                                             batch=0)
+            got_w, _, ev_w, cw = run_session(torch, whole, cg_in, os.path.join(work, "cg32_w"),
+                                             batch=1)
+        share, worst, db = u8_diff(got_b, got_w)
+        print(f"[batch] CycleGAN {tag}: the group of 8 ran whole-image: fused_resnet_block "
+              f"launches {cb['fused_resnet_block']} (9 for the stack at (8,128,128,256)) against "
+              f"{cw['fused_resnet_block']} one image at a time whole-image; u8 vs those "
+              f"{100 * share:.4f}% within one level, max diff {worst}, PSNR {db:.1f} dB (bar "
+              + (f"{MIN_PSNR_DB} dB" if dt == bf16 else "100% within one level") + ")"
+              + (f"; whole-image one at a time wall {ms(wall_w)} ms per image, events "
+                 f"{ms(ev_w)}, stages {st_w}" if dt == bf16 else ""), flush=True)
+        if cb != {**want, "fused_resnet_block": 9} or cw != {**want, "fused_resnet_block": 72}:
+            fail(f"CycleGAN {tag} batched: launches {cb}, one at a time {cw}")
+        if (db < MIN_PSNR_DB) if dt == bf16 else (share < 1.0):
+            fail(f"CycleGAN {tag} batched vs one at a time: {share:.5f} within one level, "
+                 f"{db:.1f} dB")
+        if dt == bf16 and (groups != [8] or c1 != {**want, "fused_resnet_block": 72}):
+            fail(f"CycleGAN batched: groups {groups}, batch=1 launches {c1}")
+        cg[dt] = sess
+
+    # the cross-image tile stack through the stage's runner: 64 tiles in
+    # groups grown toward 1.4 MP, against the per-image tiled runs
+    imgs = np.stack([iio.read_img(os.path.join(cg_in, f)) for f in sorted(os.listdir(cg_in))])
+    for dt in (bf16, fp32):
+        runner, params = cg[dt].stages[0].runner, cg[dt].stages[0].params
+        x = np2tensor(imgs, normalize=True, dtype=dt, device=dev)
+        plan = runner.plan_for(512, 512, on_cuda=True)
+        chunk = group_chunk(plan, len(imgs), tile_batch=runner.tile_batch,
+                            max_group_px=runner.max_group_px)
+
+        def stacked():
+            return runner(params, x)
+
+        def one_by_one():
+            return torch.cat([runner(params, x[i: i + 1]) for i in range(len(imgs))])
+
+        counts, outs = {}, {}
+        for name, fn in (("stack", stacked), ("single", one_by_one)):
+            reset_counts()
+            outs[name] = _postprocess_u8(fn(), denormalize=True, batched=True).cpu().numpy()
+            counts[name] = read_counts()["fused_resnet_block"]
+        d = np.abs(outs["stack"].astype(np.int32) - outs["single"].astype(np.int32))
+        share = float((d <= 1).mean())
+        db = psnr(outs["stack"], outs["single"], 255.0)
+        timing = ""
+        if dt == bf16:
+            timing = (f"; {cuda_ms(stacked, reps=3):.2f} ms against "
+                      f"{cuda_ms(one_by_one, reps=3):.2f} ms between CUDA events")
+        print(f"[batch] CycleGAN tiled stack of {len(imgs)} at 512x512, {str(dt)[6:]}: "
+              f"{plan.n_tiles * len(imgs)} tiles of {plan.tile_h}x{plan.tile_w}, chunk {chunk} "
+              f"(one image alone: {plan.chunk or min(runner.tile_batch, plan.n_tiles)}); "
+              f"fused_resnet_block launches {counts['stack']} against {counts['single']} one "
+              f"image at a time{timing}; u8 vs the per-image tiled runs {100 * share:.4f}% within "
+              f"one level, max diff {int(d.max())}, PSNR {db:.1f} dB (bar "
+              + (f"{MIN_PSNR_DB} dB" if dt == bf16 else "100% within one level") + ")",
+              flush=True)
+        if (chunk, counts["stack"], counts["single"]) != (32, 18, 72):
+            fail(f"tiled stack: chunk {chunk}, launches {counts}")
+        if (db < MIN_PSNR_DB) if dt == bf16 else (share < 1.0):
+            fail(f"tiled stack {dt} vs per image: {share:.5f} within one level, {db:.1f} dB")
+
+    # the CLI: --metrics against the pix2pix batch=1 outputs, --timing, --profile
+    gt = os.path.dirname(p2p_single[0])
+    prof = os.path.join(work, "batch_profile")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["-m", os.path.join(work, "p2p_synth_unet256.pth"), "-a", "unet_256",
+                       "-i", p2p_in, "-o", os.path.join(work, "batch_cli"), "--metrics", gt,
+                       "--timing", "--profile", prof])
+    rows = [ln.split() for ln in buf.getvalue().splitlines()
+            if ln.strip().startswith("metrics ") and "mean" not in ln]
+    dbs = [float(r[3]) for r in rows]
+    trace = os.path.join(prof, TRACE_FILE)
+    size = os.path.getsize(trace) if os.path.isfile(trace) else 0
+    print(f"[batch] CLI -a unet_256 --metrics (the batch=1 outputs) --timing --profile: rc {rc}, "
+          f"{len(rows)} metric rows, PSNR {min(dbs) if dbs else 'none'} to "
+          f"{max(dbs) if dbs else 'none'} dB (bar 48.1, or inf); trace "
+          f"{os.path.relpath(trace, work)} {size} bytes", flush=True)
+    if rc != 0 or len(rows) != 20 or min(dbs) < 48.1 or size == 0:
+        fail(f"the CLI's --metrics/--profile run: rc {rc}, rows {rows}, trace {size} bytes")
+
+
+def phase_stages(dev, work, main):
+    """The main path's ESRGAN images through process with StageTimers, with
+    the encode pool and with encodes inline, after a warm-up pass: the two
+    images, and the same two three times over (six); inside "image", the
+    forward's enqueue and the pinned copy's start are timed apart.  Then
+    one 4x 1080p output encoded alone."""
+    import torch
+
+    from innfer_tpu_torch import pipeline
+    from innfer_tpu_torch.io import images as iio
+    from innfer_tpu_torch.observability import StageTimers
+    from innfer_tpu_torch.pipeline import InferenceSession
+
+    six = os.path.join(work, "stages_in_six")
+    os.makedirs(six)
+    for k in range(3):
+        for name in main["sizes"]:
+            os.symlink(os.path.join(main["in_dir"], f"{name}.png"),
+                       os.path.join(six, f"{name}_{k}.png"))
+    sess = InferenceSession(main["ckpt"], compute_dtype=torch.bfloat16, tile_mode="auto")
+    # a warm-up pass, untimed: a session's first forwards pack the kernel's
+    # weights and upload the tile plans' constants, once
+    sess.process(main["in_dir"], os.path.join(work, "stages_warm"), verbose=False)
+    current = {}
+    forward, start = sess.forward, pipeline.HostCopy.__dict__["start"]
+
+    def timed_forward(x, **kw):
+        with current["timers"].stage("image: forward enqueue"):
+            return forward(x, **kw)
+
+    def timed_start(cls, u8):
+        with current["timers"].stage("image: pinned copy start"):
+            return start.__func__(cls, u8)
+
+    sess.forward = timed_forward
+    pipeline.HostCopy.start = classmethod(timed_start)
+    try:
+        for label, in_dir, n in (("two images", main["in_dir"], main["n_images"]),
+                                 ("six images", six, 3 * main["n_images"])):
+            for threads in ("2", "0"):
+                timers = current["timers"] = StageTimers()
+                out_dir = os.path.join(work, f"stages_{n}_{threads}")
+                os.environ["INNFER_ENCODE_THREADS"] = threads
+                try:
+                    reset_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    written = sess.process(in_dir, out_dir, verbose=False, timers=timers)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                finally:
+                    del os.environ["INNFER_ENCODE_THREADS"]
+                counts = read_counts()
+                rep = timers.report()
+                print(f"[stages] ESRGAN, {label} ({', '.join(main['sizes'])}), bf16 "
+                      f"{sess.stages[0].runner.last_mode}, INNFER_ENCODE_THREADS={threads}: wall "
+                      f"{wall:.3f} s; "
+                      + "; ".join(f"{k} total {v['total_s']:.4f} s, n {v['count']}, mean "
+                                  f"{v['mean_ms']:.2f} ms" for k, v in sorted(rep.items()))
+                      + f"; fused_rdb launches {counts['fused_rdb']}", flush=True)
+                if counts["fused_rdb"] != 69 * n or len(written) != n:
+                    fail(f"the [stages] run launched {counts} and wrote {written}")
+                if not {"read", "image", "fetch", "encode"} <= set(rep) or "batch" in rep:
+                    fail(f"StageTimers timed {sorted(rep)}")
+    finally:
+        del sess.forward
+        pipeline.HostCopy.start = start
+    big = iio.read_img(os.path.join(work, "stages_2_0", f"{list(main['sizes'])[-1]}.png"))
+    path = os.path.join(work, "stages_encode_alone.png")
+    t0 = time.perf_counter()
+    iio.save_img(big, path)
+    dt = time.perf_counter() - t0
+    print(f"[stages] one {big.shape[0]}x{big.shape[1]} output encoded alone through "
+          f"io.images.save_img ({iio.codec_name()}): {1e3 * dt:.1f} ms, "
+          f"{os.path.getsize(path) / 1e6:.1f} MB", flush=True)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "innfer_tpu_torch")):
         fail("innfer_tpu_torch/ is not beside chip_smoke.py: run it from a checkout")
@@ -1515,6 +1889,8 @@ def main() -> int:
             phase_zoo(dev, work, main)
             phase_ts(dev, work, main)
             phase_i2i(dev, work, main)
+            phase_batch(dev, work)
+            phase_stages(dev, work, main)
     rdb_src = "innfer_tpu_torch/ops/csrc/rdb.cu"
     kernels = [
         {"name": "fused_rdb", "route": "cuda", "source": rdb_src,

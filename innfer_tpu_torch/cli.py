@@ -3,19 +3,31 @@
     python -m innfer_tpu_torch.cli -m 4x_model.pth [-a infer] [-i ./input]
         [-o ./output] [-s N] [-cf] [-comp] [-cpu] [-no_fp16] [-norm]
         [--models-dir DIR] [--tile N] [--overlap N]
-        [--tile-mode auto|uniform|hybrid|none] [--tile-batch N]
+        [--tile-mode auto|uniform|reference|hybrid|none] [--tile-batch N]
+        [--batch N] [--fused-chain] [--timing] [--profile DIR]
+        [--metrics DIR] [--shard-index I --num-shards N]
 
 ``-m`` takes one model or a chain joined with ``+`` or ``>``, run one
-stage after another.  ``-a infer`` (the default) detects ESRGAN/ESRGAN+/
-mESRGAN, SRResNet/SRGAN, PAN, PPON and WBC state dicts and TorchScript
-archives; ``-a`` also takes an architecture alias with library defaults
-(esrgan, esrgan-lite, mesrgan, srgan, srresnet, pan, ppon, resnet_6blocks,
+stage after another (``--fused-chain``: one tile pass through every
+stage).  ``-a infer`` (the default) detects ESRGAN/ESRGAN+/mESRGAN,
+SRResNet/SRGAN, PAN, PPON and WBC state dicts and TorchScript archives;
+``-a`` also takes an architecture alias with library defaults (esrgan,
+esrgan-lite, mesrgan, srgan, srresnet, pan, ppon, resnet_6blocks,
 resnet_9blocks, unet_128, unet_256, p2p_128, p2p_256, wbcunet, wbcunet_tf,
 ...), and ``-a ts`` a TorchScript archive, which runs in fp32.  A model
-name holding "wbc" selects the WBC preset (modcrop, guided filter).  Runs
-on the CUDA device (bf16 compute) and raises with no card unless ``-cpu``
-is given; ``-cpu`` and ``-no_fp16`` compute in fp32.  The flags are the
-JAX CLI's (innfer_tpu/cli.py) that this slice of the port supports.
+name holding "wbc" selects the WBC preset (modcrop, guided filter).
+``--batch`` stacks same-shape images into one forward; its default, 0,
+sizes the groups by the memory budget for the pix2pix, CycleGAN and WBC
+presets and runs other families one image at a time.  Runs on the CUDA
+device (bf16 compute) and raises with no card unless ``-cpu`` is given;
+``-cpu`` and ``-no_fp16`` compute in fp32.
+
+The flags are the JAX CLI's (innfer_tpu/cli.py) less those that have no
+counterpart here: ``--bucket`` pads XLA compile shapes, which eager
+PyTorch does not have; ``--dp``, ``--tp``, ``--spatial`` and the
+``jax.distributed`` flags (``--coordinator``, ``--num-processes``,
+``--process-id``) are multi-device execution (ROADMAP.md queue A17).
+``--shard-index``/``--num-shards`` default to shard 0 of 1.
 """
 from __future__ import annotations
 
@@ -23,6 +35,17 @@ import argparse
 import sys
 
 import torch
+
+
+def resolve_batch(batch: int, presets) -> int:
+    """``--batch 0`` (auto): the image-to-image families (pix2pix,
+    CycleGAN, WBC) take groups sized by ``InferenceSession.auto_batch``
+    (0); every other family runs one image at a time (1) unless the user
+    asks.  The JAX package's rule (innfer_tpu/cli.py:22-49) without its
+    ``--spatial`` branch."""
+    if batch:
+        return batch
+    return 0 if presets.family in ("pix2pix", "cyclegan", "wbc") else 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,17 +69,44 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Directory searched for partial model names.")
     p.add_argument("--tile", type=int, default=256, help="Tile size (input pixels).")
     p.add_argument("--overlap", type=int, default=16, help="Tile overlap (input pixels).")
-    p.add_argument("--tile-mode", choices=["auto", "uniform", "hybrid", "none"],
+    p.add_argument("--tile-mode", choices=["auto", "uniform", "reference", "hybrid", "none"],
                    default="auto", help="Tiling strategy; 'auto' grid-fits the "
                    "tiles and, on the card, runs the trunk on the whole image "
-                   "(hybrid); 'uniform' uses the fixed --tile grid; 'none' "
-                   "forces whole-image forwards.")
+                   "(hybrid); 'uniform' uses the fixed --tile grid; 'reference' "
+                   "matches the original chop grid (200 px patches, step 0.5); "
+                   "'none' forces whole-image forwards.")
     p.add_argument("--tile-batch", type=int, default=8, help="Tiles per forward.")
+    p.add_argument("--batch", type=int, default=0,
+                   help="Group N same-shape images into one stacked forward: "
+                   "whole-image where the stack fits the memory budget, else "
+                   "their tiles share dispatch groups (tiled presets), else "
+                   "one by one.  0 = auto: groups of up to INNFER_MAX_BATCH "
+                   "(32) sized by the budget for the pix2pix, CycleGAN and "
+                   "WBC presets, 1 otherwise.")
+    p.add_argument("--fused-chain", action="store_true",
+                   help="Run a model chain as one tile pass through every "
+                   "stage (intermediate images never materialize); outputs "
+                   "may differ near tile borders within the chain's "
+                   "receptive field.  Opt-in; the default runs the stages "
+                   "one after another.")
+    p.add_argument("--no-fused-chain", action="store_true",
+                   help="Deprecated no-op: the sequential path is the default.")
+    p.add_argument("--profile", type=str, default="",
+                   help="Write a torch.profiler Chrome trace to this directory.")
+    p.add_argument("--timing", action="store_true",
+                   help="Log per-stage wall-clock timings.")
+    p.add_argument("--metrics", type=str, default="",
+                   help="Ground-truth dir: compute PSNR/SSIM per output.")
+    p.add_argument("--shard-index", type=int, default=0,
+                   help="This process's shard of the image list.")
+    p.add_argument("--num-shards", type=int, default=1,
+                   help="Processes striping the image list.")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from innfer_tpu_torch.observability import StageTimers, profile_trace
     from innfer_tpu_torch.pipeline import InferenceSession, select_presets
 
     presets = select_presets(args.arch, args.models, norm_flag=args.norm)
@@ -74,8 +124,16 @@ def main(argv=None) -> int:
         tile_batch=args.tile_batch,
         scale=args.scale,
         device="cpu" if args.cpu else None,
+        fused_chain=args.fused_chain,
     )
-    session.process(args.input, args.output, use_color_fix=args.cf, comp=args.comp)
+    timers = StageTimers() if args.timing else None
+    with profile_trace(args.profile):
+        session.process(args.input, args.output, use_color_fix=args.cf, comp=args.comp,
+                        shard_index=args.shard_index, num_shards=args.num_shards,
+                        metrics_dir=args.metrics or None, timers=timers,
+                        batch=resolve_batch(args.batch, presets))
+    if timers is not None:
+        timers.log_report()
     return 0
 
 

@@ -24,8 +24,13 @@ from innfer_tpu_torch.ops import colors
 
 try:
     import cv2
-except ImportError:  # the machine with the card has no OpenCV
+except ImportError:  # a machine without OpenCV takes the stdlib PNG codec
     cv2 = None
+
+try:  # DNG raw support is optional, as in the reference (utils.py:10-14)
+    import rawpy
+except ImportError:
+    rawpy = None
 
 MODEL_EXTENSIONS = (".pth", ".pt")
 IMG_EXTENSIONS = (
@@ -39,6 +44,8 @@ MAX_VALUES_BY_DTYPE = {
     np.dtype("uint16"): 65535,
     np.dtype("int32"): 2147483647,
     np.dtype("uint32"): 4294967295,
+    np.dtype("int64"): 9223372036854775807,
+    np.dtype("uint64"): 18446744073709551615,
     np.dtype("float32"): 1.0,
     np.dtype("float64"): 1.0,
 }
@@ -80,9 +87,14 @@ def _no_codec(path: str) -> ValueError:
 
 def read_img(path: str) -> Optional[np.ndarray]:
     """Read an image as numpy HWC BGR (uint8/uint16), like the reference;
-    None when OpenCV cannot decode it."""
+    None when OpenCV cannot decode it.  A ``.dng`` goes through rawpy
+    where it is installed, whose ``postprocess()`` array is returned as it
+    is, as the reference and the JAX package return it."""
     if not path:
         raise AssertionError("Empty path provided.")
+    if rawpy is not None and path[-3:].lower() == "dng":
+        with rawpy.imread(path) as raw:
+            return raw.postprocess()
     if cv2 is not None:
         return cv2.imread(path, cv2.IMREAD_UNCHANGED)
     if not path.lower().endswith(".png"):

@@ -1,7 +1,8 @@
 """A PNG codec on the standard library (zlib + struct) and numpy.
 
-The image I/O's codec where OpenCV cannot be imported (the machine with
-the card lists none).  It handles what the pipeline writes and most of
+The image I/O's codec where OpenCV cannot be imported (``io/images.py``
+takes OpenCV wherever it imports; ``chip_smoke.py`` prints which codec the
+card's machine uses).  It handles what the pipeline writes and most of
 what it reads: 8-bit grayscale, RGB and RGBA, non-interlaced.  Arrays use
 OpenCV's conventions: HxW for gray, HxWx3 BGR, HxWx4 BGRA, uint8.
 

@@ -16,20 +16,34 @@ run.py:229-447), for state-dict checkpoints and TorchScript archives
     rounded to u8 on the device (and color-fixed there with ``-cf``) and
     copied to pinned host memory asynchronously;
   * ``process`` overlaps decoding (a prefetch pool) and PNG encoding (a
-    background pool) with the device's work, and drains both on any exit.
+    background pool, ``INNFER_ENCODE_THREADS``) with the device's work,
+    and drains both on any exit;
+  * batched directory mode (``process(batch=)``, ``run_batch``): same-shape
+    images are stacked into one whole-image forward where it fits the
+    memory budget, else into shared tile groups (chopped presets), else
+    run one by one; ``batch=0`` sizes each shape's group (``auto_batch``);
+  * the opt-in fused tile-through-chain (``fused_chain=True``), per-stage
+    timers, and PSNR/SSIM against a ground-truth directory.
 
 bfloat16 replaces the reference's fp16; every conv accumulates in fp32.
-Batched directory mode, the fused tile-through-chain and metrics come with
-a later slice (ROADMAP.md queue A15).
+
+Not carried from the JAX package: its CycleGAN batch-4 fence (an XLA
+compile stall), the padding of partial groups to a compiled shape (eager
+PyTorch has no compiled shape to reuse, so a padded image would be wasted
+device work: partial groups run at their natural size), and the mesh
+sharding of a stack (ROADMAP.md queue A17).
 """
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 import os.path as osp
 import re
-from concurrent.futures import Future, ThreadPoolExecutor
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Deque, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,17 +53,34 @@ from innfer_tpu_torch.compat.torchscript import (FitTileRunner, is_torchscript,
 from innfer_tpu_torch.device import DeviceLike, resolve_device
 from innfer_tpu_torch.io import images as iio
 from innfer_tpu_torch.loader import load_model
+from innfer_tpu_torch.metrics import psnr_np, ssim_np
 from innfer_tpu_torch.models import get_network
 from innfer_tpu_torch.models.base import ModelDef, Params
 from innfer_tpu_torch.ops import colors
 from innfer_tpu_torch.ops.filters import color_fix, guided_filter
+from innfer_tpu_torch.parallel.multihost import shard_paths
 from innfer_tpu_torch.tiling.engine import TiledRunner
 
 log = logging.getLogger("innfer_tpu_torch")
 
-# host threads beside the device: decodes run ahead, encodes trail behind
+# decode threads beside the device; the encode pool's size is
+# INNFER_ENCODE_THREADS (default 2, 0 = encode inline on the main loop)
 _DECODE_THREADS = 2
-_ENCODE_THREADS = 2
+
+
+def _stage(timers, name: str):
+    """``timers.stage(name)`` (observability.StageTimers), or nothing."""
+    return timers.stage(name) if timers is not None else contextlib.nullcontext()
+
+
+def _find_reference(metrics_dir: str, name: str) -> Optional[np.ndarray]:
+    """The ground-truth image named ``name`` in ``metrics_dir``."""
+    for ext in (".png", ".jpg", ".jpeg", ".bmp", ".webp"):
+        p = osp.join(metrics_dir, name + ext)
+        if osp.isfile(p):
+            return iio.read_img(p)
+    return None
+
 
 # ---------------------------------------------------------------------------
 # Presets (reference run.py:299-315, 347-379)
@@ -160,9 +191,12 @@ def np2tensor(img: np.ndarray, *, normalize: bool = False,
               dtype: torch.dtype = torch.float32,
               device: Optional[torch.device] = None) -> torch.Tensor:
     """HWC BGR uint8/uint16 numpy -> (1, H, W, C) RGB float tensor on
-    ``device``.  The image uploads in its source dtype and is scaled there."""
+    ``device``; a stacked (N, H, W, C) batch of same-shape images converts
+    as one tensor.  The image uploads in its source dtype and is scaled
+    there."""
     if not isinstance(img, np.ndarray):
         raise TypeError("Got unexpected object type, expected np.ndarray")
+    batched = img.ndim == 4
     if img.ndim == 2:
         img = img[:, :, None]
     maxval = iio.MAX_VALUES_BY_DTYPE.get(img.dtype, 1.0)
@@ -175,12 +209,14 @@ def np2tensor(img: np.ndarray, *, normalize: bool = False,
         x = colors.bgra_to_rgba(x)
     if normalize:
         x = colors.norm(x)
-    return x[None].to(dtype)
+    return (x if batched else x[None]).to(dtype)
 
 
-def _postprocess_u8(x: torch.Tensor, *, denormalize: bool = False) -> torch.Tensor:
-    """(1, H, W, C) RGB float -> HWC BGR uint8, on the tensor's device."""
-    x = x[0].float()
+def _postprocess_u8(x: torch.Tensor, *, denormalize: bool = False,
+                    batched: bool = False) -> torch.Tensor:
+    """(1, H, W, C) RGB float -> HWC BGR uint8, on the tensor's device;
+    ``batched`` keeps the leading axis: (N, H, W, C) -> (N, H, W, C)."""
+    x = x.float() if batched else x[0].float()
     c = x.shape[-1]
     if c == 3:
         x = colors.rgb_to_bgr(x)
@@ -193,17 +229,27 @@ def _postprocess_u8(x: torch.Tensor, *, denormalize: bool = False) -> torch.Tens
 
 class HostCopy:
     """A u8 device output on its way to host memory: the copy into pinned
-    memory is queued at dispatch time, on the stream that produced it, and
-    ``fetch()`` (run on the encode pool) waits only for that copy."""
+    memory is queued at dispatch time (:meth:`start`), on the stream that
+    produced it, and ``fetch()`` (run on the encode pool) waits only for
+    that copy.  A stacked group's copy is one pinned buffer, one transfer
+    and one event, handed out per image by :meth:`split`."""
 
-    def __init__(self, u8: torch.Tensor):
-        if u8.is_cuda:
-            self.host = torch.empty(u8.shape, dtype=u8.dtype, pin_memory=True)
-            self.host.copy_(u8, non_blocking=True)
-            self.done = torch.cuda.Event()
-            self.done.record()
-        else:
-            self.host, self.done = u8, None
+    def __init__(self, host: torch.Tensor, done: Optional["torch.cuda.Event"] = None):
+        self.host, self.done = host, done
+
+    @classmethod
+    def start(cls, u8: torch.Tensor) -> "HostCopy":
+        if not u8.is_cuda:
+            return cls(u8)
+        host = torch.empty(u8.shape, dtype=u8.dtype, pin_memory=True)
+        host.copy_(u8, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return cls(host, done)
+
+    def split(self) -> List["HostCopy"]:
+        """One HostCopy per image of a stacked (N, H, W, C) copy."""
+        return [HostCopy(h, self.done) for h in self.host.unbind(0)]
 
     def fetch(self) -> np.ndarray:
         if self.done is not None:
@@ -243,6 +289,9 @@ def _whole_forward_bytes(model: ModelDef, x_shape: Sequence[int]) -> int:
     if kind == "unet_net":
         return px * int(cfg.get("ngf", 64)) * 2 * 4 * 3
     if kind == "resnet_net":
+        # leaves out fused_resnet_block's fp32 scratch (4 ngf channels at a
+        # quarter of the pixels, about 6% of this), as the JAX formula has
+        # no such buffer to count
         return px * int(cfg.get("ngf", 64)) * 4 * 4
     if kind == "wbcunet_net":
         return px * nf * 4 * 4
@@ -262,12 +311,15 @@ class Stage:
     runner: Optional[TiledRunner] = None
     _fallback: Optional[TiledRunner] = None
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if self.chop and self.runner is not None:
+    def __call__(self, x: torch.Tensor, *, force_whole: bool = False) -> torch.Tensor:
+        """``force_whole`` bypasses the tiled runner and the memory guard:
+        a batched group runs its stack whole-image, and ``run_batch`` has
+        checked the budget for it (``InferenceSession.batchable``)."""
+        if self.chop and self.runner is not None and not force_whole:
             return self.runner(self.params, x)
         budget = whole_image_budget(x.device)
         need = _whole_forward_bytes(self.model, x.shape)
-        if budget is not None and need > budget:
+        if not force_whole and budget is not None and need > budget:
             # the whole image would overflow the card: tile instead, unless
             # the stage's numerics depend on the whole image (train-mode
             # normalization computes its statistics over it)
@@ -295,7 +347,10 @@ class Stage:
 class InferenceSession:
     """A loaded model chain ready to process images on ``device`` (the CUDA
     device unless ``device="cpu"``): the stages run one after another,
-    with the guided filter after each where the preset asks for it."""
+    with the guided filter after each where the preset asks for it.
+
+    ``fused_chain=True`` (opt-in, as in the JAX package) runs a chain of
+    two or more models as one tile pass instead (:meth:`build_fused_chain`)."""
 
     def __init__(
         self,
@@ -312,6 +367,7 @@ class InferenceSession:
         scale: Optional[int] = None,
         device: DeviceLike = None,
         backend: Optional[str] = None,
+        fused_chain: bool = False,
     ):
         self.device = resolve_device(device)
         self.presets = presets or select_presets(arch, models_arg)
@@ -354,9 +410,61 @@ class InferenceSession:
                         tail_fn=model.apply_tail, tail_halo=model.tail_halo,
                         trunk_kernel=model.trunk_kernel, output_index=model.output_index)
             self.stages.append(Stage(model, params, self.presets.chop, runner))
+        self._fused_runner: Optional[TiledRunner] = None
+        if fused_chain and len(self.stages) > 1:
+            if self.presets.use_guided_filter:
+                raise ValueError(
+                    "fused_chain cannot apply the per-stage guided filter "
+                    "(wbc preset); use fused_chain=False")
+            if self.has_torchscript:
+                raise ValueError(
+                    "fused_chain cannot run TorchScript stages inside the tile "
+                    "pass; use fused_chain=False (chains with a ts stage run "
+                    "the sequential path)")
+            # cap the input tile so that the final-scale tile stays bounded,
+            # and grow the overlap with the chain's depth (its combined
+            # receptive field), as the JAX package does
+            fused_tile = min(tile, max(64, 1024 // max(self.total_scale, 1)))
+            fused_overlap = min(overlap * len(self.stages), fused_tile // 3)
+            self._fused_runner = self.build_fused_chain(
+                tile=fused_tile, overlap=fused_overlap, tile_batch=tile_batch,
+                mode="auto" if tile_mode == "hybrid" else tile_mode)
+        self.last_metrics: List[dict] = []
         log.info("innfer_tpu_torch session on %s, %s compute, %d stage(s), image "
                  "codec: %s", self.device, self.compute_dtype, len(self.stages),
                  iio.codec_name())
+
+    @property
+    def total_scale(self) -> int:
+        s = 1
+        for st in self.stages:
+            s *= st.model.scale
+        return s
+
+    @property
+    def has_torchscript(self) -> bool:
+        return any(st.model.cfg.get("type") == "torchscript" for st in self.stages)
+
+    def build_fused_chain(self, *, tile: int = 128, overlap: int = 8,
+                          tile_batch: int = 8, mode: str = "uniform") -> TiledRunner:
+        """Tile-through-chain execution: one tile pass runs every stage on
+        each tile and blends once at the final scale, so no intermediate
+        image is materialized.  Opt-in, as in the JAX package (slower
+        there than the sequential stages on its product chain); outputs
+        may differ from the sequential path near tile borders, within the
+        chain's combined receptive field.  The stages' ops round and run
+        true fp32 as the sequential path's do (``nn/functional``)."""
+        stages = self.stages
+
+        def chained(_params, t):
+            for st in stages:
+                out = st.model.apply(st.params, t)
+                t = out if st.model.output_index is None else out[st.model.output_index]
+            return t
+
+        return TiledRunner(chained, self.total_scale, mode=mode, tile=tile,
+                           overlap=overlap, tile_batch=tile_batch,
+                           compute_dtype=self.compute_dtype)
 
     def prepare(self, img: np.ndarray) -> np.ndarray:
         if self.presets.resize:
@@ -365,13 +473,17 @@ class InferenceSession:
             img = iio.modcrop(img, 4)
         return img
 
-    def forward(self, t_img: torch.Tensor) -> torch.Tensor:
+    def forward(self, t_img: torch.Tensor, *, force_whole: bool = False) -> torch.Tensor:
         """The chain on an (N, H, W, C) device tensor: each stage on the
-        whole image in turn, and after each, where the preset asks for it
-        (WBC), the guided filter against the input (run.py:425-429)."""
+        whole image in turn (``force_whole``: untiled, see
+        :meth:`Stage.__call__`), and after each, where the preset asks for
+        it (WBC), the guided filter against the input (run.py:425-429); or
+        the fused chain's tile pass."""
+        if self._fused_runner is not None:
+            return self._fused_runner(None, t_img)
         t_out = t_img
         for stage in self.stages:
-            t_out = stage(t_out)
+            t_out = stage(t_out, force_whole=force_whole)
             if self.presets.use_guided_filter:
                 t_out = guided_filter(t_img, t_out, r=1, eps=5e-3)
         return t_out
@@ -392,64 +504,228 @@ class InferenceSession:
         if color_ref is not None:
             ref = torch.from_numpy(np.ascontiguousarray(color_ref)).to(self.device)
             u8 = color_fix(ref.reshape(ref.shape[:2] + (-1,)), u8)
-        out = HostCopy(u8)
+        out = HostCopy.start(u8)
         return out if host_copy else out.fetch()
 
+    # -- batched directory mode (innfer_tpu/pipeline.py:681-881) -----------
+
+    def batchable(self, shape: Sequence[int], n: int) -> bool:
+        """Whether ``n`` stacked images of prepared HWC ``shape`` can run as
+        one whole-image forward within the memory budget, checked at every
+        stage's input resolution; no limit on the CPU."""
+        if n <= 1:
+            return False
+        budget = whole_image_budget(self.device)
+        if budget is None:
+            return True
+        h, w = int(shape[0]), int(shape[1])
+        c = int(shape[2]) if len(shape) > 2 else 1
+        for st in self.stages:
+            if _whole_forward_bytes(st.model, (n, h, w, c)) > budget:
+                return False
+            h, w = h * st.model.scale, w * st.model.scale
+            c = int(st.model.cfg.get("out_nc", 3))
+        return True
+
+    def batchable_tiled(self, shape: Sequence[int], n: int) -> bool:
+        """Whether ``n`` stacked images can run through the tiled engine
+        (cross-image tile stacking).  A dispatch group's activations stay
+        bounded by the engine's group-pixel cap whatever ``n`` is; what
+        grows with ``n`` are the resident canvases (input stack, fp32 tiles
+        and recompose canvas, output), the JAX package's 24 bytes per
+        output pixel, with 2 GB kept for the group's activations."""
+        if n <= 1:
+            return False
+        budget = whole_image_budget(self.device)
+        if budget is None:
+            return True
+        out_px = n * int(shape[0]) * int(shape[1]) * self.total_scale ** 2
+        return out_px * 24 < budget - 2 * 1024 ** 3
+
+    def _group_fits(self, shape: Sequence[int], n: int) -> bool:
+        # run_batch's path order: whole-image stacking, then tiled stacking
+        # for chopped presets
+        if self.batchable(shape, n):
+            return True
+        return self.presets.chop and self.batchable_tiled(shape, n)
+
+    def auto_batch(self, shape: Sequence[int], cap: int = 0) -> int:
+        """The group size of ``batch=0``: the largest power of 2 up to
+        ``cap`` (default ``INNFER_MAX_BATCH``, 32) whose stack fits."""
+        cap = cap or int(os.environ.get("INNFER_MAX_BATCH", "32"))
+        n = 1
+        while n * 2 <= cap and self._group_fits(shape, n * 2):
+            n *= 2
+        return n
+
+    def run_batch(self, imgs: List[np.ndarray], *, already_prepared: bool = False,
+                  use_color_fix: bool = False, host_copy: bool = False) -> list:
+        """Run N images as one stacked forward where they allow it; returns
+        one output per image, numpy or (``host_copy``) :class:`HostCopy`.
+
+        Path order, as the JAX package's: same-shape images that fit the
+        budget run one whole-image stacked forward (a fused-chain session
+        excepted, whose images all stay on its tile pass); else a chopped
+        preset without TorchScript stacks their tiles in shared dispatch
+        groups (``tiling/engine.tiled_apply``); else each image runs alone.
+        Per-image outputs equal the solo forwards' up to summation order:
+        convs and instance norm act per image, and train-mode batch norm
+        takes per-image statistics (``nn/functional.batch_norm``).  A CycleGAN
+        stack runs whole-image, so its instance norm takes whole-image
+        statistics, where a lone image runs tiled with per-tile ones, as
+        in the JAX package."""
+        if not already_prepared:
+            imgs = [self.prepare(im) for im in imgs]
+        imgs = [im[:, :, None] if im.ndim == 2 else im for im in imgs]
+        n = len(imgs)
+        same = all(im.shape == imgs[0].shape and im.dtype == imgs[0].dtype for im in imgs)
+        whole_ok = (same and self._fused_runner is None
+                    and self.batchable(imgs[0].shape, n))
+        tiled_ok = (not whole_ok and same and self.presets.chop and not self.has_torchscript
+                    and self.batchable_tiled(imgs[0].shape, n))
+        if not whole_ok and not tiled_ok:
+            return [self.run_image(im, already_prepared=True, host_copy=host_copy,
+                                   color_ref=im if use_color_fix else None)
+                    for im in imgs]
+        stacked = np.stack(imgs)
+        t_img = np2tensor(stacked, normalize=self.presets.normalize,
+                          dtype=self.compute_dtype, device=self.device)
+        u8 = _postprocess_u8(self.forward(t_img, force_whole=whole_ok),
+                             denormalize=self.presets.normalize, batched=True)
+        if use_color_fix:
+            u8 = color_fix(torch.from_numpy(stacked).to(self.device), u8)
+        outs = HostCopy.start(u8).split()
+        return outs if host_copy else [o.fetch() for o in outs]
+
     def process(self, input_dir: str, output_dir: str, *, use_color_fix: bool = False,
-                comp: bool = False, verbose: bool = True) -> List[str]:
+                comp: bool = False, verbose: bool = True, shard_index: int = 0,
+                num_shards: int = 1, metrics_dir: Optional[str] = None, timers=None,
+                batch: int = 1) -> List[str]:
         """Process a directory of images; returns the written paths.
 
         Upcoming images decode on a prefetch pool while the device works;
-        finished outputs are fetched and PNG-encoded on a background pool.
+        finished outputs are fetched and PNG-encoded on a background pool
+        of ``INNFER_ENCODE_THREADS`` threads (default 2; 0 encodes inline).
         ``use_color_fix`` (-cf) transfers the prepared input's color to
         the output on the device; ``comp`` (-comp) writes the prepared
-        input and the output side by side.  Write errors surface at the
+        input and the output side by side.  ``shard_index``/``num_shards``
+        stripe the work list (``parallel/multihost.shard_paths``);
+        ``metrics_dir`` holds each output against the same-named ground
+        truth (PSNR/SSIM, on the host; rows in ``self.last_metrics``);
+        ``timers`` (``observability.StageTimers``) times the ``read``,
+        ``image``/``batch``, ``fetch`` and ``encode`` stages.
+
+        ``batch > 1`` groups same-shape prepared images and runs each full
+        group through :meth:`run_batch`; ``batch=0`` sizes each shape's
+        group with :meth:`auto_batch`.  Groups left at the end of the
+        directory run at their natural size.  Write errors surface at the
         end-of-run drain; on any error the queued work is cancelled and
         both pools are shut down."""
-        paths = iio.get_images_paths(input_dir)
+        paths = shard_paths(iio.get_images_paths(input_dir), shard_index, num_shards)
         written: List[str] = []
+        metric_rows: List[dict] = []
+        n_enc = int(os.environ.get("INNFER_ENCODE_THREADS", "2"))
         dec_pool = ThreadPoolExecutor(max_workers=_DECODE_THREADS,
                                       thread_name_prefix="innfer-decode")
-        enc_pool = ThreadPoolExecutor(max_workers=_ENCODE_THREADS,
-                                      thread_name_prefix="innfer-encode")
+        enc_pool = (ThreadPoolExecutor(max_workers=n_enc, thread_name_prefix="innfer-encode")
+                    if n_enc > 0 else None)
         ahead = 2 * _DECODE_THREADS
-        decodes: List[Future] = []
-        encodes: List[Future] = []
+        decodes: Deque = deque()
+        encodes: Deque = deque()
 
-        def finalize(out: HostCopy, dst: str, src: str, img_in: np.ndarray):
-            img = out.fetch()
-            if comp:
-                iio.save_img_comp([img_in, img], dst)
-            else:
-                iio.save_img(img, dst)
+        def finalize(out: HostCopy, dst: str, name: str, src: str, img_in: np.ndarray):
+            with _stage(timers, "fetch"):
+                img = out.fetch()
+            with _stage(timers, "encode"):
+                if comp:
+                    iio.save_img_comp([img_in, img], dst)
+                else:
+                    iio.save_img(img, dst)
+            if metrics_dir:
+                gt = _find_reference(metrics_dir, name)
+                if gt is not None and gt.shape != img.shape:
+                    # presets that resize or modcrop the input change the
+                    # output's geometry against a same-named ground truth
+                    print(f"  metrics {name}: skipped — ground truth {gt.shape} != "
+                          f"output {img.shape} (the preset resized/modcropped the input)")
+                elif gt is not None:
+                    row = {"image": name, "psnr": round(psnr_np(img, gt), 3),
+                           "ssim": round(ssim_np(img.astype(np.float32) / 255.0,
+                                                 gt.astype(np.float32) / 255.0), 4)}
+                    metric_rows.append(row)
+                    if verbose:
+                        print(f"  metrics {name}: PSNR {row['psnr']} dB, SSIM {row['ssim']}")
             if verbose:
                 print(f"{src} -> {dst} {img.shape[1]}x{img.shape[0]}")
 
+        def finish(name: str, src: str, img_in: np.ndarray, out: HostCopy):
+            dst = osp.join(output_dir, f"{name}.png")
+            written.append(dst)
+            if enc_pool is None:
+                finalize(out, dst, name, src, img_in)
+                return
+            # bound the outputs in flight: each holds a full output image
+            # in pinned host memory
+            while len(encodes) >= max(4, 2 * n_enc):
+                encodes.popleft().result()
+            encodes.append(enc_pool.submit(finalize, out, dst, name, src, img_in))
+
+        def flush(group):
+            names, srcs, imgs = zip(*group)
+            # one "batch" sample per group: its time per image is the
+            # total over the group's size
+            with _stage(timers, "batch"):
+                outs = self.run_batch(list(imgs), already_prepared=True,
+                                      use_color_fix=use_color_fix, host_copy=True)
+            for name, src, img_in, out in zip(names, srcs, imgs, outs):
+                finish(name, src, img_in, out)
+
+        targets = {}   # shape key -> group size
+        pending = {}   # shape key -> the images of its open group
         try:
-            decodes = [dec_pool.submit(iio.read_img, p) for p in paths[:ahead]]
+            decodes.extend(dec_pool.submit(iio.read_img, p) for p in paths[:ahead])
             for i, src in enumerate(paths):
-                img = decodes[i].result()
+                with _stage(timers, "read"):
+                    img = decodes.popleft().result()
                 if i + ahead < len(paths):
                     decodes.append(dec_pool.submit(iio.read_img, paths[i + ahead]))
                 if img is None:
                     print(f"Error reading image {src}, skipping.")
                     continue
-                img = self.prepare(img)
-                out = self.run_image(img, already_prepared=True, host_copy=True,
-                                     color_ref=img if use_color_fix else None)
-                dst = osp.join(output_dir, osp.splitext(osp.basename(src))[0] + ".png")
-                # bound the outputs in flight: each pins a full SR image
-                while len(encodes) >= 2 * _ENCODE_THREADS + 2:
-                    encodes.pop(0).result()
-                encodes.append(enc_pool.submit(finalize, out, dst, src, img))
-                written.append(dst)
-            for f in encodes:
-                f.result()  # surface write errors
+                name = osp.splitext(osp.basename(src))[0]
+                img_in = self.prepare(img)
+                key = (img_in.shape, str(img_in.dtype))
+                if key not in targets:
+                    targets[key] = (batch if batch > 1 else
+                                    self.auto_batch(img_in.shape) if batch == 0 else 1)
+                if targets[key] > 1:
+                    group = pending.setdefault(key, [])
+                    group.append((name, src, img_in))
+                    if len(group) == targets[key]:
+                        flush(group)
+                        pending[key] = []
+                    continue
+                with _stage(timers, "image"):
+                    out = self.run_image(img_in, already_prepared=True, host_copy=True,
+                                         color_ref=img_in if use_color_fix else None)
+                finish(name, src, img_in, out)
+            for group in pending.values():
+                if group:
+                    flush(group)
+            while encodes:
+                encodes.popleft().result()  # surface write errors
         except BaseException:
-            for f in decodes + encodes:
+            for f in list(decodes) + list(encodes):
                 f.cancel()
             raise
         finally:
             dec_pool.shutdown(wait=True)
-            enc_pool.shutdown(wait=True)
+            if enc_pool is not None:
+                enc_pool.shutdown(wait=True)
+        if metric_rows and verbose:
+            mean_p = sum(r["psnr"] for r in metric_rows) / len(metric_rows)
+            mean_s = sum(r["ssim"] for r in metric_rows) / len(metric_rows)
+            print(f"metrics mean over {len(metric_rows)}: PSNR {mean_p:.3f} dB, "
+                  f"SSIM {mean_s:.4f}")
+        self.last_metrics = metric_rows
         return written

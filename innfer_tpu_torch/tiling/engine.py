@@ -6,7 +6,10 @@ size and the plan's blend constants on the device.
 
   * ``tiled_apply``: reflect-pad, cut the plan's tiles, run them in groups
     of ``chunk``, and recompose with the linear seam blend (the JAX
-    package's scatter-free concat form; one form is enough here).
+    package's scatter-free concat form; one form is enough here).  A stack
+    of B same-shape images shares its dispatch groups (cross-image tile
+    stacking), which grow toward ``max_group_px``; each image recomposes
+    from its own tiles.
   * ``hybrid_apply``: the whole-image LR trunk on an input padded to
     ``hybrid_dims``, then a tiled upsample tail recomposed the same way.
 """
@@ -18,8 +21,9 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as TF
 
-from innfer_tpu_torch.tiling.plan import (TilePlan, make_auto_plan,
-                                          make_cover_plan, make_uniform_plan)
+from innfer_tpu_torch.tiling.plan import (MAX_GROUP_PX, TilePlan, make_auto_plan,
+                                          make_cover_plan, make_reference_plan,
+                                          make_uniform_plan)
 
 log = logging.getLogger("innfer_tpu_torch")
 
@@ -39,14 +43,15 @@ def _pad_to(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
 
 
 def pad_image(x: torch.Tensor, plan: TilePlan) -> torch.Tensor:
-    """Reflect-pad (1, H, W, C) to the plan's padded size."""
+    """Reflect-pad (B, H, W, C) to the plan's padded size."""
     return _pad_to(x, plan.pad_h, plan.pad_w)
 
 
 def extract_tiles(x: torch.Tensor, plan: TilePlan) -> torch.Tensor:
-    """(1, pad_h, pad_w, C) -> (n_tiles, Th, Tw, C), row-major tile order."""
+    """(B, pad_h, pad_w, C) -> (B * n_tiles, Th, Tw, C): image-major, each
+    image's tiles in row-major order."""
     th, tw = plan.tile_h, plan.tile_w
-    return torch.stack([x[0, sh: sh + th, sw: sw + tw]
+    return torch.stack([x[b, sh: sh + th, sw: sw + tw] for b in range(x.shape[0])
                         for sh in plan.starts_h for sw in plan.starts_w])
 
 
@@ -120,23 +125,43 @@ def _run_groups(fn: Callable, params, tiles: torch.Tensor, chunk: int,
     return torch.cat(outs)
 
 
+def group_chunk(plan: TilePlan, n_images: int, *, tile_batch: int = 8,
+                max_group_px: int = MAX_GROUP_PX) -> int:
+    """Tiles per dispatch group for a stack of ``n_images``: the plan's
+    chunk (default ``min(tile_batch, n_tiles)``) for one image; for a
+    stack, grown toward ``max_group_px`` and cut to a multiple of 8 above
+    8, the JAX package's group composition
+    (innfer_tpu/tiling/engine.py:218-228)."""
+    base = plan.chunk or min(tile_batch, plan.n_tiles)
+    if n_images == 1:
+        return base
+    n = plan.n_tiles * n_images
+    cap = max(1, max_group_px // max(1, plan.tile_h * plan.tile_w))
+    chunk = min(n, max(base, cap))
+    return chunk // 8 * 8 if chunk > 8 else chunk
+
+
 def tiled_apply(apply_fn: Callable, params, x: torch.Tensor, plan: TilePlan, *,
                 tile_batch: int = 8, output_index: Optional[int] = None,
                 compute_dtype: Optional[torch.dtype] = None,
-                consts: Optional[PlanConsts] = None) -> torch.Tensor:
-    """Run ``apply_fn`` over all tiles of one image (1, H, W, C) in groups
-    of the plan's chunk (default ``min(tile_batch, n_tiles)``) and
-    recompose.  Stacking tiles of several images waits for a later slice."""
-    if x.shape[0] != 1:
-        raise NotImplementedError(
-            "tiled_apply takes one image; cross-image tile stacking (B > 1) "
-            "is not ported to innfer_tpu_torch yet (ROADMAP.md queue A15)")
+                consts: Optional[PlanConsts] = None,
+                max_group_px: int = MAX_GROUP_PX) -> torch.Tensor:
+    """Run ``apply_fn`` over all tiles of ``x`` (B, H, W, C) in groups of
+    :func:`group_chunk` and recompose each image from its own tiles.
+
+    B > 1 is cross-image tile stacking: the tiles of every image share the
+    dispatch groups, so a stack of small images takes fewer, fuller
+    launches.  The last group runs at its natural size (the JAX package
+    pads it with zero tiles to keep one compiled shape)."""
+    n_im = x.shape[0]
     tiles = extract_tiles(pad_image(x, plan), plan)
     if compute_dtype is not None:
         tiles = tiles.to(compute_dtype)
-    chunk = plan.chunk or min(tile_batch, plan.n_tiles)
-    return recompose_tiles(_run_groups(apply_fn, params, tiles, chunk, output_index),
-                           plan, consts)
+    chunk = group_chunk(plan, n_im, tile_batch=tile_batch, max_group_px=max_group_px)
+    out = _run_groups(apply_fn, params, tiles, chunk, output_index)
+    n = plan.n_tiles
+    return torch.cat([recompose_tiles(out[i * n: (i + 1) * n], plan, consts)
+                      for i in range(n_im)])
 
 
 def _wide_bw(tw: int) -> int:
@@ -201,9 +226,13 @@ class TiledRunner:
     """Plan cache + tiled/hybrid execution per image size.
 
     ``mode``: ``uniform`` (fixed --tile grid), ``auto`` (grid-fit plan,
-    upgraded to ``hybrid`` where :meth:`_hybrid_auto_eligible` says) or
-    ``hybrid``.  ``output_index`` picks one output of a multi-output
-    model (PPON, which has no trunk/tail split) on the tile grid.
+    upgraded to ``hybrid`` where :meth:`_hybrid_auto_eligible` says),
+    ``reference`` (the reference's chop grid of ``patch`` pixels at
+    ``step``, ``tiling/plan.make_reference_plan``) or ``hybrid``.
+    ``output_index`` picks one output of a multi-output model (PPON, which
+    has no trunk/tail split) on the tile grid.  A stack of images shares
+    its tile groups (``tiled_apply``), except in hybrid mode, whose
+    whole-image trunk runs one image at a time.
     """
 
     # whole-trunk input-pixel cap for hybrid mode, the JAX package's
@@ -211,15 +240,15 @@ class TiledRunner:
     HYBRID_PX_CAP = 9_000_000
 
     def __init__(self, apply_fn: Callable, scale: int, *, mode: str = "uniform",
-                 tile=256, overlap: int = 16, tile_batch: int = 8,
+                 tile=256, overlap: int = 16, patch: int = 200, step: float = 0.5,
+                 tile_batch: int = 8, max_group_px: int = MAX_GROUP_PX,
                  compute_dtype: Optional[torch.dtype] = None,
                  trunk_fn: Callable = None, tail_fn: Callable = None,
                  tail_halo: int = 0, trunk_kernel: bool = False,
                  output_index: Optional[int] = None):
-        if mode not in ("auto", "uniform", "hybrid"):
-            raise NotImplementedError(
-                f"tile mode {mode!r} is not ported to innfer_tpu_torch yet; "
-                "use auto, uniform or hybrid")
+        if mode not in ("auto", "uniform", "reference", "hybrid"):
+            raise ValueError(f"unknown tile mode {mode!r}; use auto, uniform, "
+                             "reference or hybrid")
         if mode == "hybrid" and (trunk_fn is None or tail_fn is None):
             raise ValueError(
                 "hybrid mode requires a model with a trunk/tail split "
@@ -230,7 +259,10 @@ class TiledRunner:
         self.mode = mode
         self.tile = tile
         self.overlap = overlap
+        self.patch = patch
+        self.step = step
         self.tile_batch = tile_batch
+        self.max_group_px = max_group_px
         self.compute_dtype = compute_dtype
         self.trunk_fn = trunk_fn
         self.tail_fn = tail_fn
@@ -292,9 +324,13 @@ class TiledRunner:
         if plan is None:
             if mode == "hybrid":
                 plan = self._hybrid_plan(h, w)
+            elif mode == "reference":
+                plan = make_reference_plan(h, w, self.scale, patch=self.patch,
+                                           step=self.step)
             elif mode == "auto":
                 plan = make_auto_plan(h, w, self.scale, overlap=self.overlap,
-                                      tile_batch=self.tile_batch)
+                                      tile_batch=self.tile_batch,
+                                      max_group_px=self.max_group_px)
             elif isinstance(self.tile, (tuple, list)):
                 plan = make_uniform_plan(h, w, self.scale, tile_h=self.tile[0],
                                          tile_w=self.tile[1], overlap=self.overlap)
@@ -313,8 +349,9 @@ class TiledRunner:
     def __call__(self, params, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[1], x.shape[2]
         mode = self.mode_for(h, w, x.is_cuda)
-        if x.shape[0] > 1:
-            # tiled_apply and the whole-image trunk take one image at a time
+        if x.shape[0] > 1 and mode == "hybrid":
+            # the whole-image trunk runs one image at a time, as the JAX
+            # package's does (innfer_tpu/tiling/engine.py:531-539)
             return torch.cat([self(params, x[i: i + 1]) for i in range(x.shape[0])])
         plan = self.plan_for(h, w, x.is_cuda)
         consts = self._plan_consts(plan, x.device)
@@ -327,4 +364,5 @@ class TiledRunner:
                 out_w=w * self.scale, consts=consts)
         return tiled_apply(self.apply_fn, params, x, plan,
                            tile_batch=self.tile_batch, output_index=self.output_index,
-                           compute_dtype=self.compute_dtype, consts=consts)
+                           compute_dtype=self.compute_dtype, consts=consts,
+                           max_group_px=self.max_group_px)

@@ -121,9 +121,14 @@ def make_uniform_plan(
     )
 
 
+# the per-dispatch pixel cap of a tile group: the JAX package's
+# TPU-measured constant, kept so that both packages plan and stack alike
+MAX_GROUP_PX = 1_400_000
+
+
 def make_auto_plan(
     h: int, w: int, scale: int, *, overlap: int = 16, tile_batch: int = 8,
-    max_group_px: int = 1_400_000, min_tile: int = 64, align: int = 8,
+    max_group_px: int = MAX_GROUP_PX, min_tile: int = 64, align: int = 8,
     fixed_chunk: bool = False,
 ) -> TilePlan:
     """Grid-fit planner: the (possibly rectangular) tile size whose grid

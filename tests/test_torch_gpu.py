@@ -502,3 +502,88 @@ def test_guided_filter_and_color_fix_on_card_match_cpu(cuda_device, dtype):
         a = color_fix(ref.to(cuda_device), out.to(cuda_device)).cpu().numpy().astype(int)
         b = color_fix(ref, out).numpy().astype(int)
         assert (np.abs(a - b) <= 1).mean() >= 0.999
+
+
+# ---------------------------------------------------------------------------
+# The batched directory path on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resnet_block_stack_of_32_equals_single_launches_on_card(cuda_device, dtype):
+    """One launch over a stack of 32 images equals 32 one-image launches to
+    the last bit: instance norm's statistics are per image, and nothing
+    the kernel sums may depend on B (whole-image CycleGAN stacks and
+    cross-image tile groups reach it at B up to 32)."""
+    g = torch.Generator().manual_seed(16)
+    c = 256
+    w1, w2 = ((torch.randn(c, c, 3, 3, generator=g) * 0.02).to(cuda_device, dtype)
+              for _ in range(2))
+    b1, b2 = ((torch.randn(c, generator=g) * 0.1).to(cuda_device) for _ in range(2))
+    x = torch.randn(32, 20, 36, c, generator=g).to(cuda_device, dtype)
+    before = fused_resnet_block.launches
+    stack = fused_resnet_block(x, w1, b1, w2, b2)
+    singles = torch.cat([fused_resnet_block(x[i: i + 1].contiguous(), w1, b1, w2, b2)
+                         for i in range(32)])
+    torch.cuda.synchronize()
+    assert fused_resnet_block.launches - before == 33
+    assert torch.equal(stack, singles)
+
+
+def _golden(name):
+    import os.path as osp
+
+    return osp.join(osp.dirname(__file__), "goldens", name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("family", ["pix2pix", "cyclegan"])
+def test_run_batch_on_card_matches_per_image(cuda_device, monkeypatch, family, dtype):
+    """run_batch on the card against the same images one at a time, u8
+    within one level (bf16: in 99.9%): pix2pix's whole-image stack (train-mode batch norm
+    per image), CycleGAN's whole-image stack against whole-image solo
+    runs and its cross-image tile stack against tiled solo runs, with the
+    kernel's launches (9 per forward or tile group)."""
+    from innfer_tpu_torch.pipeline import InferenceSession, select_presets
+
+    arch, ckpt = (("unet_128", "unet128.pth") if family == "pix2pix"
+                  else ("resnet_9blocks", "cyclegan9.pth"))
+    imgs = [np.random.default_rng(s).integers(0, 256, (40, 48, 3), dtype=np.uint8)
+            for s in range(4)]
+
+    def session(chop):
+        p = select_presets(arch)
+        p.chop = p.chop and chop
+        return InferenceSession(_golden(ckpt), arch=arch, presets=p, compute_dtype=dtype,
+                                tile=32, overlap=8, tile_batch=2)
+
+    def close(a, b):
+        # fp32: every value within one level; bf16: a conv of another batch
+        # size may sum in another order, and a one-ulp flip of a bf16
+        # intermediate can carry past one level at a few pixels
+        d = np.abs(a.astype(int) - b.astype(int))
+        assert a.shape == b.shape
+        assert d.max() <= 1 if dtype == torch.float32 else (d <= 1).mean() >= 0.999
+
+    sess, whole = session(True), session(False)
+    before = fused_resnet_block.launches
+    with torch.no_grad():
+        outs = sess.run_batch(imgs)
+        stacked = fused_resnet_block.launches - before
+        for o, im in zip(outs, imgs):
+            close(o, whole.run_image(im))
+        if family == "cyclegan":
+            assert stacked == 9  # one whole-image forward of the stack
+            monkeypatch.setattr(sess, "batchable", lambda shape, n: False)
+            plan = sess.stages[0].runner.plan_for(40, 48, on_cuda=True)
+            from innfer_tpu_torch.tiling.engine import group_chunk
+
+            chunk = group_chunk(plan, len(imgs), tile_batch=2)
+            before = fused_resnet_block.launches
+            tiled = sess.run_batch(imgs)
+            assert fused_resnet_block.launches - before == 9 * -(-plan.n_tiles * 4 // chunk)
+            for o, im in zip(tiled, imgs):
+                close(o, sess.run_image(im))
+        else:
+            assert stacked == 0

@@ -39,8 +39,16 @@ def test_scan_covers_the_port():
     for module in (("ops", "rdb.py"), ("ops", "resnet_block.py"), ("models", "resnet.py"),
                    ("models", "srresnet.py"), ("models", "pan.py"), ("models", "ppon.py"),
                    ("compat", "torchscript.py"), ("nn", "resize.py"), ("models", "unet.py"),
-                   ("models", "wbc.py"), ("ops", "filters.py")):
-        assert any(f.endswith(os.path.join(*module)) for f in files)
+                   ("models", "wbc.py"), ("ops", "filters.py"), ("observability.py",),
+                   ("metrics.py",), ("parallel", "multihost.py")):
+        assert any(f.endswith(os.path.join("innfer_tpu_torch", *module)) for f in files)
+
+
+def test_metrics_import_no_opencv():
+    """ssim_np runs on numpy: metrics.py imports no cv2, at module level or
+    inside a function (the JAX package's ssim_np imports it)."""
+    roots = set(_imported_roots(os.path.join(ROOT, "innfer_tpu_torch", "metrics.py")))
+    assert "cv2" not in roots and "numpy" in roots
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))

@@ -106,8 +106,9 @@ def test_auto_upgrades_to_hybrid_on_cuda_only():
 
 
 def test_runner_rejects_unported_modes():
-    with pytest.raises(NotImplementedError, match="reference"):
-        TE.TiledRunner(lambda p, x: x, 2, mode="reference")
+    TE.TiledRunner(lambda p, x: x, 2, mode="reference")  # ported with the batched path
+    with pytest.raises(ValueError, match="unknown tile mode 'spatial'"):
+        TE.TiledRunner(lambda p, x: x, 2, mode="spatial")
     with pytest.raises(ValueError, match="trunk/tail split"):
         TE.TiledRunner(lambda p, x: x, 2, mode="hybrid")
 
