@@ -33,7 +33,22 @@ the final result line):
               same images through backend="torch" at >= 40 dB, with the
               kernel run's tiling asked for (tile_mode="hybrid": a trunk
               of plain ops keeps the auto grid);
-  5. chain    at the main-path shape (1, 1088, 1920, 64) bf16: one
+  5. tail     the A/B of the JAX package's exact tail rewrites on the main
+              path's 1080x1920 image: its trunk once, then the session's
+              own runner (hybrid_apply's tile groups) runs the tail in four
+              forms, forced through models/common.py's predicates: (a) the
+              plain materialized tail, (b) LR-collapsed upconv blocks, (c)
+              collapsed blocks + the phase tail (the JAX default), (d) (c)
+              with the dense phase conv; CUDA events in turns a b c d d c b
+              a, three times; each form's median ms, spread, FLOPs and PSNR
+              against (a) (bf16 at 1080p >= 35 dB, fp32 on a crop of the
+              trunk output >= 80 dB).  A form is adopted only if its median
+              beats (a) by more than the spread of its own reps; the
+              fastest adopted form must be the one the predicates encode.
+              Then the per-phase HR conv at one tail group's shape: the
+              package's merged conv, the JAX split with a TF.pad per phase,
+              and one pad with views;
+  6. chain    at the main-path shape (1, 1088, 1920, 64) bf16: one
               fused_rdb_padded call (with the RRDB residual) against its
               plain version; the nb=23 fused_rrdb_trunk (69 chain-mode
               launches) against its plain version (PSNR >= 40 dB, peak
@@ -46,7 +61,7 @@ the final result line):
               through InferenceSession with INNFER_RDB_CHAIN=1: 69
               fused_rdb_padded launches per image, none of fused_rdb, and
               >= 40 dB against the main path's PNGs;
-  6. resnet_block  fused_resnet_block against resnet_block_reference at
+  7. resnet_block  fused_resnet_block against resnet_block_reference at
               the CycleGAN path's shape (8, 138, 64, 256) and on a ragged
               slab (3, 37, 29, 256), bf16 and fp32, with and without bias
               (fp32: max-abs 1e-4; bf16: PSNR >= 55 dB and every value
@@ -56,14 +71,14 @@ the final result line):
               TFLOP/s and share of the bound; and at the batched path's
               shapes (8, 128, 128, 256) and (32, 66, 36, 256), bf16,
               against the plain version, timed beside the bound;
-  7. cyclegan a seeded synthetic CycleGAN resnet_9blocks (ngf=64) state
+  8. cyclegan a seeded synthetic CycleGAN resnet_9blocks (ngf=64) state
               dict with legacy InstanceNorm running-stat keys, and seeded
               512x512 and 1080x1920 PNGs, through InferenceSession with the
               cyclegan preset (non-strict load, [-1, 1]) in bf16,
               tile_mode="auto": 9 fused_resnet_block launches per tile
               group, 1x PNGs, >= 40 dB against backend="torch", and fp32
               kernel path vs torch path >= 80 dB on a small input;
-  8. zoo      seeded synthetic SRResNet 4x (nf=64, nb=16, pixelshuffle,
+  9. zoo      seeded synthetic SRResNet 4x (nf=64, nb=16, pixelshuffle,
               relu, CNA), PAN 4x (nf=40, unf=24, nb=16, self-attention)
               and PPON 4x (nf=64, nb=24) state dicts, the reference
               defaults, through InferenceSession.process with
@@ -78,12 +93,12 @@ the final result line):
               card vs CPU at >= 80 dB with 0 fused_rdb launches; an
               instance-norm ESRGAN's runner in auto mode stays on the tile
               grid, while the main path's leakyrelu ESRGAN went hybrid;
-  9. ts       a TorchScript archive traced from a 4x SRResNet nn.Module
+ 10. ts       a TorchScript archive traced from a 4x SRResNet nn.Module
               (nf=64, nb=16) defined here, through InferenceSession with
               arch "ts" on the card: probed scale 4, the tiled output
               against the eager module's whole-image fp32 forward >= 40
               dB (u8), the whole-image stage >= 80 dB, ms per image;
- 10. i2i      the image-to-image families, whole image, bf16 and fp32, no
+ 11. i2i      the image-to-image families, whole image, bf16 and fp32, no
               kernel launched: a seeded synthetic pix2pix unet_256 (ngf=64,
               batch norm with running stats and num_batches_tracked,
               deconv) through InferenceSession(arch="unet_256") with the
@@ -101,7 +116,7 @@ the final result line):
               Then guided_filter, color_fix and linear_resize alone, card
               vs CPU: fp32 >= 80 dB, u8 within 1 level in >= 99.9%, with
               their times;
- 11. batch    the batched directory path at full width, bf16, each
+ 12. batch    the batched directory path at full width, bf16, each
               directory processed twice (both passes' wall ms per image
               and CUDA-event ms per image of the forwards are printed,
               with the second pass's StageTimers per image):
@@ -126,7 +141,19 @@ the final result line):
               batch=1 outputs (PSNR >= 48.1 dB on every row, the PSNR of
               every value one level off, or inf), --timing, and --profile
               (a Chrome trace file must exist);
- 12. stages   after an untimed warm-up pass (the session's first forwards
+ 13. evsrgan  a seeded synthetic 4x evsrgan (RRDBNet with Conv3d, nb=23,
+              nf=64, gc=32, leakyrelu) saved with torch.save, through
+              load_model -> model.apply on a clip of 5 frames of 270x480 in
+              bf16 and fp32: ms between CUDA events and TFLOP/s, bf16 vs
+              fp32 >= 30 dB, fp32 card vs CPU on a (1,3,16,16,3) clip at
+              full depth >= 80 dB, 0 kernel launches, and
+              InferenceSession refusing it with the Conv3D ValueError;
+ 14. convert  a seeded synthetic 4x mESRGAN (nb=23) checkpoint in the
+              RRDB_trunk.* layout converted by innfer_tpu_torch.tools.convert
+              --remap mod2normal, then the main path's 540x960 PNG through
+              InferenceSession from both files in bf16: identical u8
+              outputs, 69 fused_rdb launches each;
+ 15. stages   after an untimed warm-up pass (the session's first forwards
               pack the kernel's weights), the main path's two ESRGAN
               images, then the same two three times over, through
               process with StageTimers,
@@ -137,11 +164,12 @@ the final result line):
               wall, 69 fused_rdb launches per image; then one 4320x7680
               output encoded alone through io.images.save_img, with the
               codec's name;
- 13. result   the kernels line (each kernel also with "tflops", its
+ 16. result   the kernels line (each kernel also with "tflops", its
               achieved rate, and "bound_share", bound_ms / ms), the card
               line and, last,
               {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Each path (main, chain, cyclegan, zoo, ts, i2i, batch, stages) runs with
+Each path (main, chain, cyclegan, zoo, ts, i2i, batch, evsrgan, convert,
+stages) runs with
 every kernel's launch count set to 0 just before it and read just after;
 launches made to compare a kernel with its plain version are not counted.
 """
@@ -529,6 +557,187 @@ def phase_main(dev, work):
         fail(f"fp32 kernel path vs torch path PSNR {db32:.1f} dB < 80")
     return {"launches": launches, "ckpt": ckpt, "in_dir": in_dir, "out_dir": out_dir,
             "n_images": len(sizes), "sizes": sizes, "mode": runner.last_mode}
+
+
+TAIL_FORMS = {"a": "plain materialized tail", "b": "collapsed upconv, materialized HR tail",
+              "c": "collapsed upconv, phase tail split per phase",
+              "d": "collapsed upconv, phase tail as one dense conv"}
+TAIL_BF16_DB, TAIL_FP32_DB = 35.0, 80.0   # each tail form vs the plain tail
+
+
+def tail_flops(h, w, nf=NF, out_nc=3) -> dict:
+    """Operations of each tail form of the 4x upconv ESRGAN on an h x w LR
+    image: up1 at 2x, up2, the HR conv and conv_last at 4x (3x3 convs; the
+    collapse keeps the FLOPs).  The phase tail runs the HR conv and
+    conv_last on 16 of 36 tap-slots per 4 output phases (16/9 of the HR
+    conv), the dense form on all 36 (4x)."""
+    conv = lambda cin, cout, px: 2 * 9 * cin * cout * px  # noqa: E731
+    px = h * w
+    up1, up2 = conv(nf, nf, 4 * px), conv(nf, nf, 16 * px)
+    hr, last = conv(nf, nf, 16 * px), conv(nf, out_nc, 16 * px)
+    plain = up1 + up2 + hr + last
+    return {"a": plain, "b": plain, "c": up1 + up2 + (hr + last) * 16 / 9,
+            "d": up1 + up2 + (hr + last) * 4}
+
+
+@contextlib.contextmanager
+def tail_form(form: str):
+    """Force one tail form by patching the predicates of models/common.py
+    to False, as the tests do (the predicates hold the eligibility of the
+    collapse and the phase tail); form d also swaps the per-phase HR conv
+    for the dense phase conv (its kernel cached on the ParamDict like the
+    package's)."""
+    from innfer_tpu_torch.models import common as C
+    from innfer_tpu_torch.nn import functional as F
+    from innfer_tpu_torch.nn import phase as PH
+
+    saved = C.upconv_collapse_ok, C.phase_tail_ok, C.phase_hr_conv
+
+    def dense_hr_conv(params, p, key, r=2):
+        k = C.derived(params, "phase_dense", key, lambda w: PH.dense_phase_kernel(w, r))
+        return F.conv2d(p, k, PH.phase_bias(params.get(f"{key}.bias"), r), padding=1)
+
+    if form == "a":
+        C.upconv_collapse_ok = lambda *a, **k: False
+    if form in "ab":
+        C.phase_tail_ok = lambda *a, **k: False
+    if form == "d":
+        C.phase_hr_conv = dense_hr_conv
+    try:
+        yield
+    finally:
+        C.upconv_collapse_ok, C.phase_tail_ok, C.phase_hr_conv = saved
+
+
+def policy_form(params) -> str:
+    """The tail form the package's predicates pick for the main path's
+    ESRGAN (4x upconv: blocks at model.3 and model.6)."""
+    from innfer_tpu_torch.models import common as C
+
+    collapse = C.upconv_collapse_ok(params, "model.3", factor=2)
+    phase = C.phase_tail_ok(params, "model.6", factor=2, up_mode="upconv",
+                            act_type="leakyrelu", finalact=None)
+    return {(False, False): "a", (True, False): "b", (True, True): "c"}.get(
+        (collapse, phase), f"collapse={collapse}, phase={phase}")
+
+
+def phase_tail(dev, work, main):
+    """The A/B of the JAX package's exact tail rewrites on the main path's
+    1080p image: the trunk runs once, then the session's own runner
+    (hybrid_apply's tile groups) runs the tail in each form, forced
+    through the predicates, in turns a b c d d c b a, three times; median
+    ms per tail, the spread of each form's reps, FLOPs, PSNR against the
+    plain tail (bf16 at 1080p, fp32 on a crop of the trunk output).  A form
+    is adopted only if its median beats (a) by more than the spread of its
+    own reps; the fastest adopted form must be the one the predicates
+    encode.  Then the per-phase conv at one tail group's shape, the
+    package's merged conv against the JAX package's split with asymmetric
+    pads (a TF.pad per phase) and against one pad with views."""
+    import torch
+
+    from innfer_tpu_torch.io import images as iio
+    from innfer_tpu_torch.models import common as C
+    from innfer_tpu_torch.nn import functional as F
+    from innfer_tpu_torch.nn import phase as PH
+    from innfer_tpu_torch.pipeline import InferenceSession, np2tensor
+    from innfer_tpu_torch.tiling.engine import _pad_to
+
+    bf16 = torch.bfloat16
+    name, (h, w) = list(main["sizes"].items())[-1]
+    sess = InferenceSession(main["ckpt"], compute_dtype=bf16, tile_mode="auto")
+    stage = sess.stages[0]
+    model, params, runner = stage.model, stage.params, stage.runner
+    x = np2tensor(iio.read_img(os.path.join(main["in_dir"], f"{name}.png")), device=dev)
+    plan = runner.plan_for(h, w, on_cuda=True)
+    if runner.mode_for(h, w, on_cuda=True) != "hybrid":
+        fail("the [tail] runner is not hybrid")
+    trunk = model.apply_trunk(params, _pad_to(x, plan.pad_h, plan.pad_w).to(bf16))
+    runner.trunk_fn = lambda p, t: trunk  # noqa: E731  (the tail alone from here)
+    flops = tail_flops(h, w)
+    outs, times = {}, {f: [] for f in TAIL_FORMS}
+    reset_counts()
+    for form in TAIL_FORMS:  # a first pass per form: derived weights, cuDNN set-up
+        with tail_form(form):
+            outs[form] = runner(params, x)
+    for _ in range(3):
+        for form in "abcddcba":
+            with tail_form(form):
+                torch.cuda.synchronize()
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                runner(params, x)
+                e1.record()
+                torch.cuda.synchronize()
+                times[form].append(e0.elapsed_time(e1))
+    if any(read_counts().values()):
+        fail(f"the tail launched a port kernel: {read_counts()}")
+    ref = outs["a"].float()
+    peak = max(1.0, ref.abs().max().item())
+    db16 = {f: (math.inf if (o.float() - ref).square().mean().item() == 0 else
+                10 * math.log10(peak ** 2 / (o.float() - ref).square().mean().item()))
+            for f, o in outs.items()}
+    del outs, ref
+    # fp32 on a crop of the trunk output: each form against the plain tail
+    p32 = {k: v.float() for k, v in params.items()}
+    crop = trunk[:, :68, :120].float()
+    out32 = {}
+    for form in TAIL_FORMS:
+        with tail_form(form):
+            out32[form] = model.apply_tail(type(params)(p32), crop).cpu()
+    db32 = {f: psnr(o, out32["a"], max(1.0, out32["a"].abs().max().item()))
+            for f, o in out32.items()}
+    stats = {}
+    for f, t in times.items():
+        t = sorted(t)
+        stats[f] = {"median": (t[2] + t[3]) / 2, "spread": t[-1] - t[0]}
+    adopted = [f for f in "bcd" if stats["a"]["median"] - stats[f]["median"] > stats[f]["spread"]]
+    best = min(adopted, key=lambda f: stats[f]["median"]) if adopted else "a"
+    for f, label in TAIL_FORMS.items():
+        st = stats[f]
+        print(f"[tail] ({f}) {label}: median {st['median']:.2f} ms per {h}x{w} tail (spread "
+              f"{st['spread']:.2f} ms over {len(times[f])} reps: "
+              f"{', '.join(f'{t:.2f}' for t in times[f])}), {flops[f] / 1e12:.3f} TFLOP, "
+              f"{flops[f] / st['median'] / 1e9:.1f} TFLOP/s; PSNR vs (a) bf16 {db16[f]:.1f} dB "
+              f"(bar {TAIL_BF16_DB}), fp32 (1,68,120,{NF}) {db32[f]:.1f} dB (bar {TAIL_FP32_DB})",
+              flush=True)
+    encoded = policy_form(params)
+    print(f"[tail] adoption rule (median beats (a) by more than the form's spread): "
+          f"{', '.join(adopted) or 'none'} beat (a); adopted ({best}); the predicates encode "
+          f"({encoded})", flush=True)
+    if min(db16.values()) < TAIL_BF16_DB or min(db32.values()) < TAIL_FP32_DB:
+        fail(f"a tail form disagrees with the plain tail: bf16 {db16}, fp32 {db32}")
+    if encoded != best:
+        fail(f"the measured policy ({best}) is not the one the predicates encode ({encoded})")
+
+    # the per-phase HR conv at one tail group's shape, three ways
+    chunk = plan.chunk or min(runner.tile_batch, plan.n_tiles)
+    g = torch.Generator().manual_seed(90)
+    p = torch.randn(chunk, 2 * plan.tile_h, 2 * plan.tile_w, 4 * NF, generator=g).to(dev, bf16)
+    wt = params["model.8.weight"]
+    bt = params["model.8.bias"]
+    kernels = PH.phase_kernels(wt, 2)
+    merged, offsets = PH.merge_phase_kernels(kernels, 2)
+
+    def split_pad_each():
+        return torch.cat([F.conv2d(p, k, bt, padding=list(pad)) for k, pad in kernels], -1)
+
+    def split_pad_once():
+        pp = F.pad2d(p, 1)
+        hg, wg = p.shape[1], p.shape[2]
+        return torch.cat([F.conv2d(pp[:, 1 - t: 1 + hg + bo, 1 - le: 1 + wg + ri], k, bt)
+                          for k, ((t, bo), (le, ri)) in kernels], -1)
+
+    ways = {"merged (the package's)": lambda: PH.conv_phases(p, merged, offsets, bt, 2),
+            "split, TF.pad per phase": split_pad_each, "split, one pad and views": split_pad_once}
+    base = ways["merged (the package's)"]().float()
+    parts = []
+    for label, fn in ways.items():
+        err = (fn().float() - base).abs().max().item()
+        parts.append(f"{label} {cuda_ms(fn, reps=5):.3f} ms (max_abs vs merged {err:.3g})")
+    print(f"[tail] phase HR conv at one tail group {tuple(p.shape)} bf16: {'; '.join(parts)}",
+          flush=True)
+    del p, trunk
+    return {"stats": stats, "best": best, "db16": db16, "db32": db32}
 
 
 def trunk_params(torch, dev, dtype, seed):
@@ -1792,6 +2001,172 @@ def phase_batch(dev, work):
         fail(f"the CLI's --metrics/--profile run: rc {rc}, rows {rows}, trace {size} bytes")
 
 
+EV_CLIP = (1, 5, 270, 480, 3)   # evsrgan's clip: 5 frames of 270x480
+
+
+def synth_evsrgan_state(torch, seed, nb=NB, nf=NF, gc=GC):
+    """A seeded 4x evsrgan (RRDBNet with Conv3d everywhere) state dict:
+    the ESRGAN keys with 3x3x3 OIDHW weights, uniform with variance
+    1/fan_in."""
+    g = torch.Generator().manual_seed(seed)
+    state = {}
+
+    def conv(key, o, i):
+        std = math.sqrt(3.0 / (i * 27))
+        state[f"{key}.weight"] = (torch.rand(o, i, 3, 3, 3, generator=g) * 2 - 1) * std
+        state[f"{key}.bias"] = (torch.rand(o, generator=g) * 2 - 1) * 0.01
+
+    conv("model.0", nf, 3)
+    for i in range(nb):
+        for j in (1, 2, 3):
+            for c in range(1, 6):
+                conv(f"model.1.sub.{i}.RDB{j}.conv{c}.0", gc if c < 5 else nf, nf + (c - 1) * gc)
+    conv(f"model.1.sub.{nb}", nf, nf)
+    for key in ("model.3", "model.6", "model.8"):
+        conv(key, nf, nf)
+    conv("model.10", 3, nf)
+    return state
+
+
+def evsrgan_flops(d, h, w, nb=NB, nf=NF, gc=GC, out_nc=3) -> float:
+    """Operations of one 4x evsrgan forward on a d x h x w clip (3x3x3
+    convs): fea conv, nb x 3 RDBs, LR conv, then up1 at 2x, up2, the HR
+    conv and conv_last at 4x."""
+    conv = lambda cin, cout, px: 2 * 27 * cin * cout * px  # noqa: E731
+    px = d * h * w
+    rdb = sum(conv(nf + c * gc, gc if c < 4 else nf, px) for c in range(5))
+    return (conv(3, nf, px) + nb * 3 * rdb + conv(nf, nf, px) + conv(nf, nf, 4 * px)
+            + 2 * conv(nf, nf, 16 * px) + conv(nf, out_nc, 16 * px))
+
+
+def phase_evsrgan(dev, work, main, clip=EV_CLIP, nb=NB):
+    """evsrgan through the library (the session refuses it): load_model ->
+    model.apply on a clip of frames in bf16 and fp32, timed by CUDA events,
+    bf16 vs fp32, fp32 card vs CPU on a (1,3,16,16,3) clip at full depth,
+    no kernel launched; then InferenceSession must raise."""
+    import numpy as np
+    import torch
+
+    from innfer_tpu_torch.loader import load_model
+    from innfer_tpu_torch.pipeline import InferenceSession
+
+    ckpt = os.path.join(work, "4x_synth_evsrgan.pth")
+    torch.save(synth_evsrgan_state(torch, seed=150, nb=nb), ckpt)
+    _b, d, h, w, _c = clip
+    frames = np.stack([synth_image(h, w, seed=151 + k) for k in range(d)])
+    x = torch.from_numpy(frames[None].astype(np.float32) / 255.0).to(dev)
+    outs, ms = {}, {}
+    reset_counts()
+    for dt in (torch.bfloat16, torch.float32):
+        model, params = load_model(ckpt, arch="evsrgan", scale=4, param_dtype=dt, device=dev)
+        if (model.cfg["convtype"], model.cfg["nb"], model.cfg["nf"]) != ("Conv3D", nb, NF):
+            fail(f"evsrgan built {model.cfg}")
+        xd = x.to(dt)
+        model.apply(params, xd)  # cuDNN's set-up of the clip's shapes
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        outs[dt] = model.apply(params, xd)
+        e1.record()
+        torch.cuda.synchronize()
+        ms[dt] = e0.elapsed_time(e1)
+    counts = read_counts()
+    if any(counts.values()):
+        fail(f"evsrgan launched a port kernel: {counts}")
+    a, b = outs[torch.bfloat16].float(), outs[torch.float32]
+    if tuple(b.shape) != (1, d, 4 * h, 4 * w, 3) or not torch.isfinite(a).all():
+        fail(f"evsrgan output {tuple(b.shape)}, finite {bool(torch.isfinite(a).all())}")
+    peak = max(1.0, b.abs().max().item())
+    mse = (a - b).square().mean().item()
+    db16 = math.inf if mse == 0 else 10 * math.log10(peak ** 2 / mse)
+    del outs, a, b
+    small = torch.rand(1, 3, 16, 16, 3, generator=torch.Generator().manual_seed(152))
+    model, params = load_model(ckpt, arch="evsrgan", scale=4, device=dev)
+    card = model.apply(params, small.to(dev)).cpu()
+    cpu = model.apply({k: v.cpu() for k, v in params.items()}, small)
+    db32 = psnr(card, cpu, max(1.0, cpu.abs().max().item()))
+    try:
+        InferenceSession(ckpt, arch="evsrgan", compute_dtype=torch.float32)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    flops = evsrgan_flops(d, h, w, nb=nb)
+    print(f"[evsrgan] 4x nb={nb} nf={NF} gc={GC} Conv3D, clip {clip}, {flops / 1e12:.2f} TFLOP "
+          f"a forward: bf16 {ms[torch.bfloat16]:.1f} ms ({flops / ms[torch.bfloat16] / 1e9:.1f} "
+          f"TFLOP/s), fp32 {ms[torch.float32]:.1f} ms ({flops / ms[torch.float32] / 1e9:.1f} "
+          f"TFLOP/s) between CUDA events; bf16 vs fp32 {db16:.1f} dB (bar {ZOO_BF16_DB}); fp32 "
+          f"card vs CPU (1,3,16,16,3) {db32:.1f} dB (bar {ZOO_FP32_DB}); kernel launches "
+          f"{sum(counts.values())}; InferenceSession: "
+          f"{'ValueError' if refused else 'did not raise'}", flush=True)
+    if db16 < ZOO_BF16_DB or db32 < ZOO_FP32_DB:
+        fail(f"evsrgan: bf16 vs fp32 {db16:.1f} dB, card vs CPU {db32:.1f} dB")
+    if not refused or "Conv3D" not in refused:
+        fail(f"InferenceSession did not refuse evsrgan with the Conv3D error: {refused}")
+
+
+def synth_mesrgan_state(torch, seed, nb=NB, nf=NF, gc=GC):
+    """A seeded 4x mESRGAN state dict in the modified layout (conv_first,
+    RRDB_trunk.<i>.RDB<j>.conv<c>, trunk_conv, upconv1/2, HRconv,
+    conv_last), uniform with variance 1/fan_in."""
+    g = torch.Generator().manual_seed(seed)
+    state = {}
+
+    def conv(key, o, i):
+        std = math.sqrt(3.0 / (i * 9))
+        state[f"{key}.weight"] = (torch.rand(o, i, 3, 3, generator=g) * 2 - 1) * std
+        state[f"{key}.bias"] = (torch.rand(o, generator=g) * 2 - 1) * 0.01
+
+    conv("conv_first", nf, 3)
+    for i in range(nb):
+        for j in (1, 2, 3):
+            for c in range(1, 6):
+                conv(f"RRDB_trunk.{i}.RDB{j}.conv{c}", gc if c < 5 else nf, nf + (c - 1) * gc)
+    for key in ("trunk_conv", "upconv1", "upconv2", "HRconv"):
+        conv(key, nf, nf)
+    conv("conv_last", 3, nf)
+    return state
+
+
+def phase_convert(dev, work, main, nb=NB):
+    """The conversion tool: a synthetic full-width mESRGAN checkpoint
+    converted with --remap mod2normal, then the main path's 540x960 PNG
+    through InferenceSession from both files in bf16: identical u8
+    outputs, 69 fused_rdb launches each."""
+    import numpy as np
+    import torch
+
+    from innfer_tpu_torch.io import images as iio
+    from innfer_tpu_torch.pipeline import InferenceSession
+    from innfer_tpu_torch.tools import convert
+
+    src = os.path.join(work, "4x_synth_mesrgan.pth")
+    dst = os.path.join(work, "4x_synth_mesrgan_normal.pth")
+    torch.save(synth_mesrgan_state(torch, seed=160, nb=nb), src)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = convert.main([src, dst, "--remap", "mod2normal"])
+    state = torch.load(dst, map_location="cpu", weights_only=True)
+    if rc != 0 or f"model.1.sub.{nb}.weight" not in state or "conv_first.weight" in state:
+        fail(f"convert --remap mod2normal: rc {rc}, keys {sorted(state)[:4]}")
+    name = next(iter(main["sizes"]))
+    in_dir = os.path.join(work, "convert_in")
+    os.makedirs(in_dir)
+    os.symlink(os.path.join(main["in_dir"], f"{name}.png"), os.path.join(in_dir, f"{name}.png"))
+    got, launches = {}, {}
+    for label, path in (("mesrgan", src), ("converted", dst)):
+        sess = InferenceSession(path, compute_dtype=torch.bfloat16, tile_mode="auto")
+        written, wall, ms, counts = run_session(torch, sess, in_dir, os.path.join(work, f"cv_{label}"))
+        got[label] = iio.read_img(written[0])
+        launches[label] = counts["fused_rdb"]
+    a, b = got["mesrgan"], got["converted"]
+    same = a is not None and b is not None and a.shape == b.shape and np.array_equal(a, b)
+    print(f"[convert] {buf.getvalue().strip()}; {name} through InferenceSession in bf16 from both "
+          f"files: u8 outputs {'identical' if same else 'DIFFER'} (shape "
+          f"{None if a is None else a.shape}); fused_rdb launches {launches}", flush=True)
+    if not same or set(launches.values()) != {3 * nb}:
+        fail(f"the converted checkpoint's outputs or launches differ: {launches}")
+
+
 def phase_stages(dev, work, main):
     """The main path's ESRGAN images through process with StageTimers, with
     the encode pool and with encodes inline, after a warm-up pass: the two
@@ -1883,6 +2258,7 @@ def main() -> int:
         timing = phase_kernel(dev)
         with tempfile.TemporaryDirectory() as work:
             main = phase_main(dev, work)
+            phase_tail(dev, work, main)
             pad, trunk = phase_chain(dev, work, main)
             rb = phase_resnet_block(dev)
             rb["launches"] = phase_cyclegan(dev, work)
@@ -1890,6 +2266,8 @@ def main() -> int:
             phase_ts(dev, work, main)
             phase_i2i(dev, work, main)
             phase_batch(dev, work)
+            phase_evsrgan(dev, work, main)
+            phase_convert(dev, work, main)
             phase_stages(dev, work, main)
     rdb_src = "innfer_tpu_torch/ops/csrc/rdb.cu"
     kernels = [

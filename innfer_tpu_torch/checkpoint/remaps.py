@@ -1,7 +1,8 @@
-"""State-dict remap passes: SWA unwrap and the mESRGAN key-layout conversion.
+"""State-dict remap passes: SWA unwrap and the mESRGAN key-layout
+conversion, both ways.
 
 The port's own copy of ``innfer_tpu/checkpoint/remaps.py`` (reference
-utils/utils.py:666-720).  Values pass through untouched, so the passes
+utils/utils.py:629-720).  Values pass through untouched, so the passes
 work on torch tensors and numpy arrays alike.
 """
 from __future__ import annotations
@@ -60,4 +61,35 @@ def mod_to_normal(state: StateDict) -> StateDict:
         if stem in direct and leaf in ("weight", "bias"):
             out[f"{direct[stem]}.{leaf}"] = v
         # anything unrecognized is dropped, matching the reference converter
+    return out
+
+
+def normal_to_mod(state: StateDict) -> StateDict:
+    """Inverse of :func:`mod_to_normal`: the flattened ESRGAN layout to the
+    modified (mesrgan) one (reference utils.py:629-663; the conversion
+    tool's ``normal2mod`` pass)."""
+    if "model.0.weight" not in state:
+        return state
+    sub_idx = re.compile(r"^model\.1\.sub\.(\d+)\.")
+    nb = max(
+        (int(m.group(1)) for k in state if "RDB" in k and (m := sub_idx.match(k))),
+        default=-1,
+    ) + 1
+    out: StateDict = {}
+    direct = {
+        "model.0": "conv_first",
+        f"model.1.sub.{nb}": "trunk_conv",
+        "model.3": "upconv1",
+        "model.6": "upconv2",
+        "model.8": "HRconv",
+        "model.10": "conv_last",
+    }
+    for k, v in state.items():
+        if "RDB" in k:
+            nk = k.replace("model.1.sub.", "RRDB_trunk.")
+            out[nk.replace(".0.weight", ".weight").replace(".0.bias", ".bias")] = v
+            continue
+        stem, _, leaf = k.rpartition(".")
+        if stem in direct and leaf in ("weight", "bias"):
+            out[f"{direct[stem]}.{leaf}"] = v
     return out

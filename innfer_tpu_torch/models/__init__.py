@@ -2,8 +2,8 @@
 
 The port's registry over the reference's types (architectures/__init__.py:
 5-40): RRDBNet, mESRGAN, SRResNet, PPON, PAN, the pix2pix UNet, the
-CycleGAN ResNet and WBC.  evsrgan (RRDBNet with Conv3D) raises in
-``rrdb.build``, naming the slice of the port that brings it.
+CycleGAN ResNet and WBC.  evsrgan (RRDBNet with Conv3D) is built by
+``rrdb._build_3d``, for the library only: ``InferenceSession`` refuses it.
 """
 from __future__ import annotations
 

@@ -26,7 +26,8 @@ class ParamDict(dict):
     an explicit arch config that does not match the checkpoint.
 
     ``cache`` holds derived forms of the parameters (the fused kernel's
-    packed weights); it belongs to this dict, so a cast builds its own."""
+    packed weights, the tail rewrites' weights); it belongs to this dict,
+    so a cast builds its own."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
@@ -119,7 +120,8 @@ def params_from_jax(params_np: Mapping[str, Any], model: Optional[ModelDef] = No
                     *, device: Optional[torch.device] = None) -> ParamDict:
     """Carry the JAX package's parameters (numpy arrays, conv weights HWIO,
     ``innfer_tpu/models/base.py:117-126``) across into port params (OIHW),
-    so both packages compute the same function in the tests.
+    so both packages compute the same function in the tests; Conv3d weights
+    go from DHWIO to OIDHW.
 
     The JAX package stores a ConvTranspose2d weight spatially flipped as
     (kh, kw, I, O) and a Conv1d weight as a dense (I, O): the keys matching
@@ -134,6 +136,8 @@ def params_from_jax(params_np: Mapping[str, Any], model: Optional[ModelDef] = No
             t = t.permute(2, 3, 0, 1).flip(2, 3)  # flipped (kh,kw,I,O) -> IOHW
         elif t.dim() == 4:
             t = t.permute(3, 2, 0, 1)  # HWIO -> OIHW
+        elif t.dim() == 5:
+            t = t.permute(4, 3, 0, 1, 2)  # DHWIO -> OIDHW (evsrgan's Conv3d)
         elif t.dim() == 2 and _matches(dense, key):
             t = t.t()[:, :, None]  # dense (I, O) -> Conv1d (O, I, 1)
         params[key] = t.to(device=device).contiguous()

@@ -1,20 +1,27 @@
 """Shared pieces of the flattened-sequential SR skeleton of RRDBNet,
-SRResNet and PPON (the port's subset of ``innfer_tpu/models/common.py``):
-positional indices, the upsample block, reference-semantics conv blocks
-(mode CNA | NAC | CNAC, batch/instance norm, act, pad) and the output cap.
+SRResNet and PPON (the port's counterpart of ``innfer_tpu/models/common.py``):
+positional indices, the upsample block, the JAX package's two exact tail
+rewrites (the LR-collapsed upconv, :func:`collapse_upconv_weight`, and the
+phase-space tail, :func:`apply_phase_tail` over ``nn/phase.py``),
+reference-semantics conv blocks (mode CNA | NAC | CNAC, batch/instance
+norm, act, pad) and the output cap.
 
-The tail runs in its plain form, nearest-up then conv at HR.  The JAX
-package's exact rewrites for the TPU's matrix unit (``collapse_upconv_weight``,
-``apply_phase_tail``) wait for an H100 measurement (ROADMAP.md).
+Which tail form runs is decided by two predicates, :func:`upconv_collapse_ok`
+and :func:`phase_tail_ok`, from an A/B on the H100 (``chip_smoke.py``
+``[tail]``), which adopted the JAX package's form: collapsed upconv
+blocks and the phase tail.  Each form stays callable, and tests force
+each by monkeypatching the predicates.  The rewrites' weights are derived
+once per parameter dict and dtype and kept in ``ParamDict.cache``.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from innfer_tpu_torch.nn import functional as F
+from innfer_tpu_torch.nn import phase as PH
 from innfer_tpu_torch.nn import resize as R
 
 Params = dict
@@ -47,19 +54,141 @@ def conv3x3(params: Params, x: torch.Tensor, key: str) -> torch.Tensor:
     return F.conv2d(x, params[f"{key}.weight"], params.get(f"{key}.bias"), padding=1)
 
 
+def derived(params: Params, tag: str, key: str, build):
+    """``build(weight)`` for the weight ``key + ".weight"``, kept in the
+    ParamDict's cache per (tag, key, dtype, device): a rewrite's weights
+    are built once per parameter dict and dtype, and a cast (a new
+    ParamDict) builds its own.  A plain dict has no cache and builds at
+    every call."""
+    w = params[f"{key}.weight"]
+    cache = getattr(params, "cache", None)
+    if cache is None:
+        return build(w)
+    ck = (tag, key, w.dtype, w.device)
+    if ck not in cache:
+        cache[ck] = build(w)
+    return cache[ck]
+
+
+def collapse_upconv_weight(w: torch.Tensor, b: Optional[torch.Tensor], factor: int):
+    """Rewrite a nearest-up(x r) + 3x3/pad-1 conv as an LR conv + shuffle.
+
+    The upsampled image is piecewise constant, so each HR output phase
+    (a, b) in [0, r)^2 reads only LR offsets {-1, 0, +1}: tap dp of the 3x3
+    kernel lands on LR offset floor((a+dp)/r), and per phase the HR taps
+    collapse (sum) onto a 3x3 LR kernel.  The block is then exactly
+    ``PixelShuffle(conv2d(x, w', b', padding=1), r)``, with w' of shape
+    (cout*r*r, cin, 3, 3) in PixelShuffle channel order o*r*r + a*r + b and
+    b' = repeat(b, r*r); HR zero padding maps to LR zero padding bit for
+    bit.  As ``innfer_tpu/models/common.py:52-96``: the taps are pre-summed
+    in fp32 and rounded once to the weight's dtype, which in bf16 is a
+    rounding the HR conv does not have."""
+    r = factor
+    cout, cin, kh, kw = w.shape
+    assert kh == 3 and kw == 3, (kh, kw)
+    # sel[a, P, t]: HR tap t (dp = t-1) of phase a lands on LR offset P-1
+    sel = torch.zeros(r, 3, 3)
+    for a in range(r):
+        for t, dp in enumerate((-1, 0, 1)):
+            sel[a, (-1 if a + dp < 0 else (1 if a + dp >= r else 0)) + 1, t] = 1.0
+    sel = sel.to(w.device)
+    w2 = torch.einsum("apd,bqe,oide->oabipq", sel, sel, w.float())
+    w2 = w2.reshape(cout * r * r, cin, 3, 3).to(w.dtype)
+    return w2, None if b is None else b.repeat_interleave(r * r)
+
+
+def upconv_collapse_ok(params: Params, key: str, *, factor: int) -> bool:
+    """Whether an upconv block runs LR-collapsed (:func:`collapse_upconv_weight`):
+    every 3x3 upconv block with a factor above 1, on every device.
+
+    Adopted from an A/B on the card (``chip_smoke.py`` ``[tail]``: the
+    main path's 1080x1920 tail through the session's hybrid tile groups,
+    bf16, NVIDIA H100 80GB HBM3 at its 700.00 W power limit): collapsed
+    blocks with the materialized HR tail 113.96 ms against 129.37 ms for
+    the plain tail (medians of 6 reps, spreads 0.45 and 0.50 ms); the same
+    FLOPs without the nearest-up materializations.  Tests force the plain
+    block by patching this predicate."""
+    w = params.get(f"{key}.weight")
+    return factor > 1 and w is not None and w.dim() == 4 and tuple(w.shape[2:]) == (3, 3)
+
+
 def apply_upsample_block(params: Params, x: torch.Tensor, key: str, *,
                          mode: str, factor: int, act_type: str,
                          act_key: str = "") -> torch.Tensor:
     """One upsample block (upconv: nearest-resize + conv + act, reference
-    block.py:348-361; pixelshuffle: conv + shuffle + act, block.py:333-346).
-    ``act_key`` is the act submodule's prefix, for prelu/swish parameters."""
-    if mode == "upconv":
+    block.py:348-361, LR-collapsed where :func:`upconv_collapse_ok` says;
+    pixelshuffle: conv + shuffle + act, block.py:333-346).  ``act_key`` is
+    the act submodule's prefix, for prelu/swish parameters."""
+    if mode == "upconv" and upconv_collapse_ok(params, key, factor=factor):
+        w2 = derived(params, "collapse", key, lambda w: collapse_upconv_weight(w, None, factor)[0])
+        b = params.get(f"{key}.bias")
+        b2 = None if b is None else b.repeat_interleave(factor * factor)
+        x = F.pixel_shuffle(F.conv2d(x, w2, b2, padding=1), factor)
+    elif mode == "upconv":
         x = conv3x3(params, R.upsample_nearest(x, factor), key)
     elif mode == "pixelshuffle":
         x = F.pixel_shuffle(conv3x3(params, x, key), factor)
     else:
         raise NotImplementedError(f"upsample mode [{mode}] is not found")
     return F.act(act_type, x, params=params, key=act_key)
+
+
+_PHASE_SAFE_ACTS = (None, "relu", "leakyrelu", "lrelu", "tanh", "sigmoid")
+
+
+def phase_tail_ok(params: Params, up_key: str, *, factor: int, up_mode: str,
+                  act_type, finalact) -> bool:
+    """Whether the tail (last upsample block + HR convs) runs in phase
+    space (:func:`apply_phase_tail`): per-block factor 2, a 3x3 last-block
+    conv and parameter-free activations (a per-channel prelu or swish
+    would need re-plumbing into the phase-major layout), on every device.
+
+    Adopted from the same A/B as :func:`upconv_collapse_ok` (NVIDIA H100
+    80GB HBM3, 700.00 W): collapsed blocks + the phase tail 107.17 ms per
+    1080x1920 tail (spread 0.63 ms) against 113.96 ms collapsed with the
+    materialized HR tail, 116.57 ms with the dense phase conv and 129.37
+    ms plain, for 7.61 against 5.62 TFLOP: no 64-channel HR pixel shuffle,
+    and one merged 256-channel conv per HR conv (``nn/phase.py``).  Tests
+    force the materialized tail by patching this predicate."""
+    if factor != 2 or up_mode not in ("upconv", "pixelshuffle"):
+        return False
+    if act_type not in _PHASE_SAFE_ACTS or finalact not in _PHASE_SAFE_ACTS:
+        return False
+    w = params.get(f"{up_key}.weight")
+    return w is not None and w.dim() == 4 and tuple(w.shape[2:]) == (3, 3)
+
+
+def phase_hr_conv(params: Params, p: torch.Tensor, key: str, r: int = 2) -> torch.Tensor:
+    """One HR 3x3 conv of the tail in phase space, its merged per-phase
+    kernels (``nn/phase.merge_phase_kernels``) built once per ParamDict."""
+    merged, offsets = derived(params, "phase", key,
+                              lambda w: PH.merge_phase_kernels(PH.phase_kernels(w, r), r))
+    return PH.conv_phases(p, merged, offsets, params.get(f"{key}.bias"), r)
+
+
+def apply_phase_tail(params: Params, h: torch.Tensor, *, up_key: str, up_mode: str,
+                     act_type, hr0: int, finalact, out_prefix: str = "model") -> torch.Tensor:
+    """The SR tail -- last upsample block, act, HR conv, act, conv_last,
+    optional finalact -- evaluated in phase space on the half-resolution
+    grid, with one final 3-channel depth-to-space
+    (``innfer_tpu/models/common.py:154-191``).  The same taps as the
+    materialized tail, summed in another order; no HR-resolution
+    activation of nf channels is ever shuffled."""
+    r = 2
+    b = params.get(f"{up_key}.bias")
+    if up_mode == "upconv":
+        w2 = derived(params, "phase_upconv", up_key, lambda w: PH.cmajor_to_phase_major(
+            collapse_upconv_weight(w, None, r)[0], r))
+        p = F.conv2d(h, w2, PH.phase_bias(b, r), padding=1)
+    else:  # pixelshuffle: the conv's channels are already per phase
+        w2 = derived(params, "phase_shuffle", up_key, lambda w: PH.cmajor_to_phase_major(w, r))
+        p = F.conv2d(h, w2, PH.cmajor_bias_to_phase_major(b, r), padding=1)
+    p = F.act(act_type, p)
+    p = F.act(act_type, phase_hr_conv(params, p, f"{out_prefix}.{hr0}", r))
+    p = phase_hr_conv(params, p, f"{out_prefix}.{hr0 + 2}", r)
+    if finalact:
+        p = F.act(finalact, p)
+    return PH.phase_shuffle_out(p, r)
 
 
 def warn_train_dropout(arch: str) -> None:

@@ -24,8 +24,12 @@ one ``fused_rrdb_trunk``: nb*nr chain-mode RDB launches on persistent
 workspaces, each RRDB's residual fused into its last RDB.
 
 Both residuals multiply by 0.2 in the activation dtype (``res_scale``), as
-the JAX package's ``jnp.asarray(0.2, x.dtype)`` does.  Conv3D (evsrgan)
-comes with a later slice of the port and raises ``NotImplementedError``.
+the JAX package's ``jnp.asarray(0.2, x.dtype)`` does.  The tail takes the
+JAX package's structure (``innfer_tpu/models/rrdb.py:304-326``): upconv
+blocks LR-collapsed and the last block with the HR convs in phase space
+where the predicates of ``models/common.py`` say.  evsrgan (convtype
+'Conv3D', :func:`_build_3d`) runs every conv as a Conv3d on NDHWC clips,
+at the library level only.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from innfer_tpu_torch.models import common as C
 from innfer_tpu_torch.models.base import ModelDef
 from innfer_tpu_torch.models.common import _outm
 from innfer_tpu_torch.nn import functional as F
+from innfer_tpu_torch.nn import resize as R
 from innfer_tpu_torch.ops.rdb import (PackedRDB, fused_rdb, fused_rrdb_trunk,
                                       pack_rdb, res_scale)
 
@@ -52,13 +57,19 @@ def _simple(act_type: str, norm_type) -> bool:
 
 
 def _rdb5c(params, x: torch.Tensor, prefix: str, *, act_type: str,
-           plus: bool, norm_type=None) -> torch.Tensor:
+           plus: bool, norm_type=None, conv_fn=None) -> torch.Tensor:
     """Residual Dense Block, plain gather form: 5 dense-concat conv blocks
     (always CNA: RRDBNet passes mode='CNA' to its RRDBs, RRDBNet_arch.py:27;
-    conv5 without act), ESRGAN+ conv1x1 cross-residuals, out*0.2 + x."""
+    conv5 without act), ESRGAN+ conv1x1 cross-residuals, out*0.2 + x.
+    ``conv_fn(t, w, b)`` replaces the conv blocks by bare convs + act
+    (Conv3D for evsrgan)."""
     cat = lambda *ts: torch.cat(ts, dim=-1)  # noqa: E731
 
     def cb(i, t, act):
+        if conv_fn is not None:
+            t = conv_fn(t, params[f"{prefix}.conv{i}.0.weight"],
+                        params.get(f"{prefix}.conv{i}.0.bias"))
+            return F.act(act_type, t) if act else t
         return C.apply_conv_block(
             params, t, lambda j: f"{prefix}.conv{i}.{j}", mode="CNA",
             norm_type=norm_type, act_type=act_type if act else None)
@@ -157,7 +168,7 @@ def _rdb_names(nr: int):
 
 
 def _rrdb(params, x: torch.Tensor, prefix: str, *, nr: int, act_type: str,
-          plus: bool, backend: str = "auto", norm_type=None) -> torch.Tensor:
+          plus: bool, backend: str = "auto", norm_type=None, conv_fn=None) -> torch.Tensor:
     names = _rdb_names(nr)
     biased = f"{prefix}.{names[0]}.conv1.0.bias" in params
     if backend == "kernel":
@@ -183,7 +194,7 @@ def _rrdb(params, x: torch.Tensor, prefix: str, *, nr: int, act_type: str,
                                  act_type=act_type, plus=plus)
         else:
             out = _rdb5c(params, out, f"{prefix}.{name}", act_type=act_type,
-                         plus=plus, norm_type=norm_type)
+                         plus=plus, norm_type=norm_type, conv_fn=conv_fn)
     return out * res_scale(x.dtype) + x
 
 
@@ -235,15 +246,19 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
     backend = cfg.get("backend", "auto")
     if norm_type not in (None, "batch", "instance"):
         raise NotImplementedError(f"normalization layer [{norm_type}] is not found")
-    if cfg.get("convtype", "Conv2D") != "Conv2D":
-        raise NotImplementedError(
-            "evsrgan (Conv3D) is not ported to innfer_tpu_torch yet "
-            "(ROADMAP.md queue A16)")
+    convtype = cfg.get("convtype", "Conv2D")
+    if convtype not in ("Conv2D", "Conv3D"):
+        raise NotImplementedError(f"convtype {convtype} not supported")
     if backend not in _BACKENDS:
         raise ValueError(f"backend must be one of {_BACKENDS}; got {backend!r}")
 
     _n_up, factor = C.n_upscale_blocks(upscale)
     up_convs, hr0 = C.upsample_indices(upscale, up_mode)
+    if convtype == "Conv3D":
+        return _build_3d(cfg, nb=nb, nr=nr, act_type=act_type, plus=plus,
+                         up_mode=up_mode, norm_type=norm_type, upscale=upscale,
+                         factor=factor, up_convs=up_convs, hr0=hr0,
+                         finalact=finalact, outm=outm)
     # the act submodule's flat index inside each upsample block:
     # upconv [Up, conv@ci, act@ci+1]; pixelshuffle [conv@ci, PS, act@ci+2]
     act_off = 1 if up_mode == "upconv" else 2
@@ -268,10 +283,18 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
         return fea + t  # ShortcutBlock (block.py:183-194)
 
     def apply_tail(params, h: torch.Tensor) -> torch.Tensor:
-        for ci in up_convs:
+        phase_tail = bool(up_convs) and C.phase_tail_ok(
+            params, f"model.{up_convs[-1]}", factor=factor, up_mode=up_mode,
+            act_type=act_type, finalact=finalact)
+        for ci in (up_convs[:-1] if phase_tail else up_convs):
             h = C.apply_upsample_block(params, h, f"model.{ci}", mode=up_mode,
                                        factor=factor, act_type=act_type,
                                        act_key=f"model.{ci + act_off}")
+        if phase_tail:
+            h = C.apply_phase_tail(params, h, up_key=f"model.{up_convs[-1]}",
+                                   up_mode=up_mode, act_type=act_type, hr0=hr0,
+                                   finalact=finalact)
+            return _outm(h, outm)
         h = F.act(act_type, C.conv3x3(params, h, f"model.{hr0}"), params=params,
                   key=f"model.{hr0 + 1}")
         h = C.conv3x3(params, h, f"model.{hr0 + 2}")
@@ -291,13 +314,63 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
         scale=upscale,
         apply_trunk=apply_trunk,
         apply_tail=apply_tail,
-        # upsample-chain receptive radius in LR px (covers scales 1/2/4/8)
+        # upsample-chain receptive radius in LR px: each block's 3x3 conv
+        # adds 1/prod(earlier factors), the phase tail's HR convs <= 1 more;
+        # 4 covers every scale (1/2/4/8)
         tail_halo=4,
         # the fused RDB runs wherever auto/kernel meets its configuration
         # (the JAX package's tile_quantum condition, rrdb.py:336-338)
         trunk_kernel=(backend in ("auto", "kernel")
                       and _kernel_config_ok(act_type, norm_type)),
     )
+
+
+def _build_3d(cfg, *, nb, nr, act_type, plus, up_mode, norm_type, upscale,
+              factor, up_convs, hr0, finalact, outm) -> ModelDef:
+    """evsrgan: RRDBNet with Conv3d everywhere, on NDHWC video clips
+    (``innfer_tpu/models/rrdb.py:355-410``).  The reference builds every
+    conv_block as nn.Conv3d k3/pad1 (block.py:232-234) and upconv blocks
+    nearest-upsample by (1, 2, 2), depth untouched (block.py:357).  Its CLI
+    cannot feed a 5-D clip, so the model is reached through the library
+    (``loader`` + ``model.apply``); ``InferenceSession`` refuses it.  No
+    port kernel runs on this path."""
+    if plus:
+        raise NotImplementedError(
+            "evsrgan plus: the reference conv1x1 is nn.Conv2d "
+            "(block.py:390-391) and crashes on 5D inputs")
+    if norm_type not in (None, "none"):
+        raise NotImplementedError(
+            "evsrgan norm layers: reference norm() builds 2D norms "
+            "(block.py:112-132) which crash on 5D inputs")
+    if up_mode != "upconv":
+        raise NotImplementedError("evsrgan supports upconv upsampling only")
+    if act_type not in _PLAIN_ACTS:
+        raise NotImplementedError(
+            f"evsrgan act {act_type!r}: only parameter-free activations "
+            "are supported on the Conv3D path")
+
+    conv3 = lambda t, w, b=None: F.conv3d(t, w, b, padding=1)  # noqa: E731
+
+    def apply(params, x: torch.Tensor) -> torch.Tensor:
+        g = lambda k: (params[f"{k}.weight"], params.get(f"{k}.bias"))  # noqa: E731
+        fea = conv3(x, *g("model.0"))
+        t = fea
+        for i in range(nb):
+            t = _rrdb(params, t, f"model.1.sub.{i}", nr=nr, act_type=act_type,
+                      plus=False, backend="torch", conv_fn=conv3)
+        h = fea + conv3(t, *g(f"model.1.sub.{nb}"))
+        for ci in up_convs:
+            b_, d, hh, ww, c = h.shape
+            u = R.upsample_nearest(h.reshape(b_ * d, hh, ww, c), factor)
+            h = F.act(act_type, conv3(u.reshape(b_, d, hh * factor, ww * factor, c),
+                                      *g(f"model.{ci}")))
+        h = F.act(act_type, conv3(h, *g(f"model.{hr0}")))
+        h = conv3(h, *g(f"model.{hr0 + 2}"))
+        if finalact:
+            h = F.act(finalact, h)
+        return _outm(h, outm)
+
+    return ModelDef(name="rrdb_net", cfg=dict(cfg), apply=apply, scale=upscale)
 
 
 def build_mrrdb(cfg: Dict[str, Any]) -> ModelDef:

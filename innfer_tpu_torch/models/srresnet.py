@@ -12,10 +12,11 @@ mode:
 ``self.res = B.sequential(conv0, conv1)`` flattens both blocks' children
 into one positional list (keys ``model.1.sub.<i>.res.<j>``).  The residual
 scale multiplies in the activation dtype, as the JAX package's
-``jnp.asarray(res_scale, x.dtype)``.  The tail runs in its plain form, as
-ESRGAN's does (the phase-space tail waits for an H100 measurement,
-ROADMAP.md A4); the trunk runs no port kernel, so auto tiling stays on
-the tile grid.
+``jnp.asarray(res_scale, x.dtype)``.  The tail takes ESRGAN's structure
+(``innfer_tpu/models/srresnet.py:82-101``): the last pixelshuffle block
+and the HR convs in phase space where ``models/common.phase_tail_ok``
+says.  The trunk runs no port kernel, so auto tiling stays on the tile
+grid.
 """
 from __future__ import annotations
 
@@ -74,10 +75,18 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
         return fea + t
 
     def apply_tail(params, h: torch.Tensor) -> torch.Tensor:
-        for ci in up_convs:
+        phase_tail = bool(up_convs) and C.phase_tail_ok(
+            params, f"model.{up_convs[-1]}", factor=factor, up_mode=up_mode,
+            act_type=act_type, finalact=finalact)
+        for ci in (up_convs[:-1] if phase_tail else up_convs):
             h = C.apply_upsample_block(params, h, f"model.{ci}", mode=up_mode,
                                        factor=factor, act_type=act_type,
                                        act_key=f"model.{ci + act_off}")
+        if phase_tail:
+            h = C.apply_phase_tail(params, h, up_key=f"model.{up_convs[-1]}",
+                                   up_mode=up_mode, act_type=act_type, hr0=hr0,
+                                   finalact=finalact)
+            return _outm(h, outm)
         h = F.act(act_type, C.conv3x3(params, h, f"model.{hr0}"), params=params,
                   key=f"model.{hr0 + 1}")
         h = C.conv3x3(params, h, f"model.{hr0 + 2}")

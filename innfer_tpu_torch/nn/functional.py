@@ -2,8 +2,8 @@
 NHWC layout.
 
 The port's counterpart of ``innfer_tpu/nn/functional.py`` for the ops the
-ESRGAN, CycleGAN, SRResNet, PAN, PPON, pix2pix UNet and WBC paths and the
-image filters (``ops/filters.py``) need.  Activations are NHWC tensors, as the JAX package's
+ESRGAN (evsrgan's Conv3D too), CycleGAN, SRResNet, PAN, PPON, pix2pix UNet
+and WBC paths and the image filters (``ops/filters.py``) need.  Activations are NHWC tensors, as the JAX package's
 public functions take them; conv weights stay OIHW, as in the checkpoint.
 A contiguous NHWC tensor viewed with ``permute(0, 3, 1, 2)`` is a
 channels-last NCHW tensor, so cuDNN runs on it without a copy.
@@ -24,7 +24,7 @@ fp32).  A bf16 cuDNN conv would round the bias to bf16 before adding it.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as TF
@@ -78,14 +78,15 @@ def _fp32_accumulate(fn, lib, x: torch.Tensor, *operands, out_dtype=None):
 
 def _conv(fn, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
           out_dtype=None, **kw):
-    """``fn`` (TF.conv2d or TF.conv_transpose2d) on NHWC ``x``: true fp32
-    for fp32/fp64 activations; otherwise bf16-valued operands accumulated
-    in fp32 with the fp32 bias, rounded once to the activation dtype (or
-    kept in ``out_dtype``)."""
-    out = _fp32_accumulate(lambda t, wt, bt: fn(nhwc_to_nchw(t), wt, bt, **kw),
+    """``fn`` (TF.conv2d, TF.conv_transpose2d or TF.conv3d) on channels-last
+    ``x`` (NHWC or NDHWC): true fp32 for fp32/fp64 activations; otherwise
+    bf16-valued operands accumulated in fp32 with the fp32 bias, rounded
+    once to the activation dtype (or kept in ``out_dtype``).  Moving the
+    channel axis to 1 is a view that cuDNN takes as channels_last(_3d)."""
+    out = _fp32_accumulate(lambda t, wt, bt: fn(t.movedim(-1, 1), wt, bt, **kw),
                            torch.backends.cudnn, x, w.to(x.dtype), b,
                            out_dtype=out_dtype)
-    return nchw_to_nhwc(out)
+    return out.movedim(1, -1)
 
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -98,19 +99,43 @@ def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-           *, stride: int = 1, padding: int = 0, dilation: int = 1, groups: int = 1,
+           *, stride: int = 1,
+           padding: Union[int, Tuple[int, int], Sequence[Tuple[int, int]]] = 0,
+           dilation: int = 1, groups: int = 1,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """2D convolution, NHWC x OIHW -> NHWC.  Matches torch.nn.Conv2d;
     ``groups`` = channels with a (C, 1, kh, kw) weight is the depthwise
     filter of ``ops/filters.filter2d``.
+
+    ``padding`` is an int, an (ph, pw) pair, or explicit [(top, bottom),
+    (left, right)] zeros, as ``innfer_tpu/nn/functional.py::conv2d`` takes
+    them; an asymmetric one pads the conv's own input (the fp32 copy on
+    the bias route) inside the accumulate route.
 
     Weights are cast to the activation dtype; the bias stays fp32 and is
     added to the fp32 accumulator before the one rounding (see the module
     docstring).  ``out_dtype`` (e.g. fp32) keeps the accumulator's dtype
     instead, so a caller can go on accumulating across convs.
     """
-    return _conv(TF.conv2d, x, w, b, out_dtype=out_dtype, stride=stride,
+    fn = TF.conv2d
+    if not isinstance(padding, int) and not isinstance(padding[0], int):
+        (top, bottom), (left, right) = padding
+        if top == bottom and left == right:
+            padding = (top, left)
+        else:
+            pads = (left, right, top, bottom)
+            fn = lambda t, wt, bt, **kw: TF.conv2d(TF.pad(t, pads), wt, bt, **kw)  # noqa: E731
+            padding = 0
+    return _conv(fn, x, w, b, out_dtype=out_dtype, stride=stride,
                  padding=padding, dilation=dilation, groups=groups)
+
+
+def conv3d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+           *, stride: int = 1, padding: int = 0, dilation: int = 1) -> torch.Tensor:
+    """3D convolution, NDHWC x OIDHW (the checkpoint's layout) -> NDHWC,
+    matching torch.nn.Conv3d (the reference's evsrgan convtype='Conv3D').
+    The accumulate route, bias and rounding of :func:`conv2d`."""
+    return _conv(TF.conv3d, x, w, b, stride=stride, padding=padding, dilation=dilation)
 
 
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,

@@ -397,6 +397,12 @@ class InferenceSession:
                     path, arch=self.presets.arch, scale=sc,
                     param_dtype=self.compute_dtype, device=self.device,
                     backend=backend, strict=self.presets.strict)
+                if model.cfg.get("convtype") == "Conv3D":
+                    raise ValueError(
+                        "evsrgan (Conv3D) is a video network with 5D NDHWC "
+                        "inputs; the image pipeline cannot feed it (the "
+                        "reference CLI cannot either) — use the library API "
+                        "(innfer_tpu_torch.loader + model.apply) instead")
                 if not self.presets.meval:
                     # rebuild with train-mode norm (the pix2pix preset's BN)
                     rebuilt = get_network({**model.cfg, "meval": False})

@@ -88,12 +88,12 @@ def test_bf16_esrgan_torch_backend_matches_jax_model(part):
     with the JAX package's weights through params_from_jax and biases that
     are NOT bf16-representable.  The trunk rounds at the JAX package's
     points now: 100% of its outputs are identical (94.0% when the bias was
-    rounded to bf16).  The whole model (apply) agrees in 25% of its
-    outputs only, before and after the repair: the JAX package's tail runs
-    its last upsample block and the HR convs in phase space
-    (innfer_tpu/models/rrdb.py:305-315), an exact rewrite in real
-    arithmetic that rounds bf16 at other points; every output is within
-    2^-6 of max(|ref|, 1) (measured: 2^-12)."""
+    rounded to bf16).  The whole model (apply) agrees in 99.9% of its
+    outputs: the port's tail takes the JAX package's form, collapsed
+    upconv blocks and the phase-space tail (innfer_tpu/models/rrdb.py:
+    305-315), and rounds bf16 at its points (25% when the port ran the
+    plain tail); every output is within 2^-6 of max(|ref|, 1) (measured:
+    2^-14)."""
     spec = {"type": "esrgan", "nb": 1, "nf": 32, "gc": 16}
     state = SP.esrgan_state(nb=1, nf=32, gc=16, scale=4, seed=5)
     jm, jp = jax_load_from_state(state, jax_config(spec, 4))
@@ -108,8 +108,7 @@ def test_bf16_esrgan_torch_backend_matches_jax_model(part):
         out = fn_t(cast_params(tp, torch.bfloat16),
                    torch.from_numpy(x).to(torch.bfloat16)).float().numpy()
     assert out.shape == ref.shape
-    if part == "trunk":
-        assert _same_share(out, ref) >= 0.999
+    assert _same_share(out, ref) >= (0.999 if part == "trunk" else 0.99)
     assert (np.abs(out - ref) <= 2.0 ** -6 * np.maximum(np.abs(ref), 1)).all()
 
 

@@ -587,3 +587,65 @@ def test_run_batch_on_card_matches_per_image(cuda_device, monkeypatch, family, d
                 close(o, sess.run_image(im))
         else:
             assert stacked == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3d_card_matches_cpu(cuda_device, dtype):
+    """evsrgan's Conv3d on the card against the CPU: fp32 within 1e-4 (true
+    fp32 both sides), bf16 the same rounding point (fp32 accumulator and
+    bias, one rounding) in >= 99% of values."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(1, 3, 17, 23, 24, generator=g)
+    w = torch.randn(16, 24, 3, 3, 3, generator=g) * 0.1
+    b = torch.randn(16, generator=g)
+    ref = F.conv3d(x.to(dtype), w.to(dtype), b, padding=1).float()
+    out = F.conv3d(x.to(cuda_device, dtype), w.to(cuda_device, dtype), b.to(cuda_device),
+                   padding=1).float().cpu()
+    assert out.shape == ref.shape
+    if dtype == torch.float32:
+        assert (out - ref).abs().max().item() < 1e-4
+    else:
+        assert (out == ref).float().mean().item() >= 0.99
+
+
+def _force_tail(monkeypatch, form):
+    from innfer_tpu_torch.models import common as C
+    from innfer_tpu_torch.nn import phase as PH
+
+    if form == "a":
+        monkeypatch.setattr(C, "upconv_collapse_ok", lambda *a, **k: False)
+    if form in "ab":
+        monkeypatch.setattr(C, "phase_tail_ok", lambda *a, **k: False)
+    if form == "d":
+        monkeypatch.setattr(C, "phase_hr_conv", lambda params, p, key, r=2: PH.phase_conv3x3_dense(
+            p, params[f"{key}.weight"], params.get(f"{key}.bias"), r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["a", "b", "c", "d"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tail_forms_card_match_cpu(cuda_device, monkeypatch, form, dtype):
+    """Each tail form (a plain, b collapsed upconv, c phase tail, d dense
+    phase conv) of a 4x ESRGAN tail on the card against the same form on
+    the CPU: fp32 >= 80 dB (a TF32 leak gives about 60), bf16 >= 40 dB."""
+    g = np.random.default_rng(6)
+    nf = 32
+    state = {}
+    for key, o in (("model.3", nf), ("model.6", nf), ("model.8", nf), ("model.10", 3)):
+        std = math.sqrt(3.0 / (9 * nf))
+        state[f"{key}.weight"] = torch.from_numpy(g.uniform(-std, std, (o, nf, 3, 3)).astype(np.float32))
+        state[f"{key}.bias"] = torch.from_numpy(g.uniform(-0.01, 0.01, o).astype(np.float32))
+    model = get_network(get_network_config({"type": "esrgan", "nb": 1, "nf": nf}, 4))
+    h = torch.from_numpy(g.standard_normal((2, 30, 44, nf)).astype(np.float32) * 0.5)
+    _force_tail(monkeypatch, form)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        params = convert_state(model, state, param_dtype=dtype, device=dev)
+        with torch.no_grad():
+            outs.append(model.apply_tail(params, h.to(dev, dtype)).float().cpu())
+    mse = (outs[0] - outs[1]).double().square().mean().item()
+    peak = max(1.0, outs[1].abs().max().item())
+    db = math.inf if mse == 0 else 10 * math.log10(peak ** 2 / mse)
+    assert outs[0].shape == (2, 120, 176, 3)
+    assert db >= (80 if dtype == torch.float32 else 40)

@@ -166,16 +166,13 @@ def test_golden_nr2_through_load_model_from_state():
     {"type": "unet_256"},
 ])
 def test_configs_of_later_slices_raise(spec):
-    """evsrgan (Conv3D) is not ported and raises; the image-to-image
-    families build, from the JAX package's config."""
+    """The families of the later slices (evsrgan's Conv3D, the
+    image-to-image families) build from the JAX package's config, as the
+    JAX package's models; none raises any more."""
     from innfer_tpu.models import get_network as jax_get_network
 
     cfg = get_network_config(dict(spec), 2)
     assert cfg == jax_config(dict(spec), 2)
-    if spec["type"] == "evsrgan":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_network(cfg)
-        return
     model = get_network(cfg)
     jax_model = jax_get_network(cfg)
     assert (model.name, model.scale, model.cfg) == (jax_model.name, jax_model.scale,

@@ -19,6 +19,7 @@ from innfer_tpu_torch import cli as torch_cli
 from innfer_tpu_torch.io import images as iio
 from innfer_tpu_torch.io import png
 from innfer_tpu_torch.nn import functional as F
+from innfer_tpu_torch.nn import phase as PH
 from innfer_tpu_torch.ops.rdb import rdb_reference
 from innfer_tpu_torch.pipeline import InferenceSession, _postprocess_u8, np2tensor
 from tools import synth_params as SP
@@ -122,6 +123,22 @@ def test_fp32_path_requests_no_tf32(monkeypatch):
     seen.clear()
     F.conv2d(x.bfloat16(), torch.rand(8, 8, 3, 3), None, padding=1)
     assert seen == [(True, torch.backends.cuda.matmul.allow_tf32)]
+    # evsrgan's conv3d, the phase tail's convs and an asymmetric pad: true fp32
+    seen.clear()
+    real3d = torch.nn.functional.conv3d
+
+    def spy3d(*a, **kw):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        return real3d(*a, **kw)
+
+    monkeypatch.setattr(torch.nn.functional, "conv3d", spy3d)
+    F.conv3d(torch.rand(1, 3, 6, 6, 4), torch.rand(4, 4, 3, 3, 3), torch.rand(4), padding=1)
+    p = torch.rand(1, 4, 5, 4 * 8)
+    PH.phase_conv3x3(p, torch.rand(8, 8, 3, 3), torch.rand(8))
+    PH.phase_conv3x3_dense(p, torch.rand(8, 8, 3, 3), torch.rand(8))
+    F.conv2d(x, torch.rand(8, 8, 3, 3), torch.rand(8), padding=[(1, 0), (0, 1)])
+    assert len(seen) == 4 and all(s == (False, False) for s in seen)
+    assert torch.backends.cudnn.allow_tf32
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16])

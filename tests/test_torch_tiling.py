@@ -2,8 +2,7 @@
 
 Plans and ``hybrid_dims`` must be equal (the hybrid trunk canvas decides
 border pixels).  Runner outputs are compared on the CPU in fp32 at
->= 80 dB; the JAX hybrid tail runs its phase-space rewrite, the port the
-plain tail, an exact reformulation.
+>= 80 dB; both packages' hybrid tails run the phase-space rewrite.
 """
 import numpy as np
 import pytest
