@@ -164,12 +164,55 @@ the final result line):
               wall, 69 fused_rdb launches per image; then one 4320x7680
               output encoded alone through io.images.save_img, with the
               codec's name;
- 16. result   the kernels line (each kernel also with "tflops", its
+ 16. parallel the device mesh on the one card, on virtual meshes that
+              repeat cuda:0 (each halo copy and per-device slice of the
+              real path runs; times are the mesh code's overhead on one
+              card, not scaling): (a) make_mesh(n_data=2) raises on a
+              one-card machine (its message printed), make_mesh() is 1x1
+              of cuda:0; (b) halo_conv2d on 4 shards at (1,1088,1920,64)
+              -> 64 against F.conv2d, fp32 max-abs <= 1e-4 x max|ref|,
+              bf16 >= 40 dB, both timed; (c) the main path's ESRGAN
+              through build_spatial_apply on 4 shards against its
+              whole-image forward with the plain tail forced (the form the
+              spatial path computes): bf16 1080x1920 u8 >= 40 dB, fp32
+              540x960 >= 80 dB, ms between CUDA events, 0 kernel
+              launches; [zoo]'s SRResNet through SpatialRunner on 8 shards
+              of 540x960 (padded to 544 rows) in fp32, the exact output
+              shape and >= 80 dB on rows away from the padding; (d) the
+              main path's PNGs through InferenceSession(spatial=True) on 4
+              shards, >= 40 dB against (c)'s whole-image outputs, and PAN
+              refused with the JAX package's reason; (e) dp tiles: the
+              main path's session on 2 data slices, tile_mode="auto"
+              (which stays on the tile grid), on the 540x960 PNG: 69
+              fused_rdb launches per slice run, u8 against a mesh-free
+              TiledRunner on the same plan >= 40 dB and >= 99.9% within
+              one level; fp32 on a 64x64 crop max-abs <= 1e-5 against a
+              mesh-free runner whose groups have the slices' composition
+              (which isolates the mesh code) and <= 5e-4 against one at
+              the same tile_batch (cuDNN's fp32 convs are not
+              batch-invariant; about 10x the 4.58e-05 the H100 showed);
+              ms against the mesh-free runner; (f) tp
+              on (2 data x 2 model): 69
+              launches per slice on gathered weights, >= 40 dB against
+              (e), fp32 whole model on the crop max-abs <= 1e-5 against
+              replicated params; (g) run_batch on 2 data slices against no
+              mesh: pix2pix unet_256 on 8 of [batch]'s 256x256 PNGs (100%
+              within one level) and CycleGAN on its 8 of 512x512 (9
+              fused_resnet_block launches per slice of (4,128,128,256);
+              bf16 >= 40 dB, fp32 100% within one level);
+ 17. multiproc two CLI processes (innfer_tpu_torch.cli run as __main__)
+              share cuda:0, joined with --coordinator 127.0.0.1:<free
+              port> --num-processes 2 --process-id r over gloo, on 4
+              seeded 540x960 PNGs through the main path's checkpoint: each
+              writes only its stripe, and their union equals a
+              single-process CLI run (bar 100% within one level); each
+              process's wall and fused_rdb launches (69 per image);
+ 18. result   the kernels line (each kernel also with "tflops", its
               achieved rate, and "bound_share", bound_ms / ms), the card
               line and, last,
               {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Each path (main, chain, cyclegan, zoo, ts, i2i, batch, evsrgan, convert,
-stages) runs with
+stages, and each of parallel's and multiproc's) runs with
 every kernel's launch count set to 0 just before it and read just after;
 launches made to compare a kernel with its plain version are not counted.
 """
@@ -2244,6 +2287,394 @@ def phase_stages(dev, work, main):
           f"{os.path.getsize(path) / 1e6:.1f} MB", flush=True)
 
 
+def timed_once(torch, fn):
+    """``fn()`` once, and its ms between CUDA events."""
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def dp_slices(n_tiles: int, chunk: int, n_data: int) -> int:
+    """Slices a mesh runner runs: groups of ``chunk`` tiles (the last at its
+    natural size), each cut into at most ``n_data`` non-empty slices."""
+    return sum(min(n_data, min(chunk, n_tiles - i)) for i in range(0, n_tiles, chunk))
+
+
+def phase_parallel(dev, work, main, halo_shape=(1, 1088, 1920, NF)):
+    """The device mesh on the one card: make_mesh's device check, halo_conv2d,
+    the spatial forward, the session under spatial=True, dp tiles, tp and
+    the batched dp split, on virtual meshes that repeat cuda:0 (each halo
+    copy and per-device slice of the real path runs; the times are the
+    mesh code's overhead on one card, not scaling)."""
+    import numpy as np
+    import torch
+
+    from innfer_tpu_torch.io import images as iio
+    from innfer_tpu_torch.loader import load_model
+    from innfer_tpu_torch.nn import functional as F
+    from innfer_tpu_torch.parallel.mesh import (make_mesh, params_on, replicate_params,
+                                                tp_shard_params)
+    from innfer_tpu_torch.parallel.spatial import halo_conv2d
+    from innfer_tpu_torch.parallel.spatial_model import (SpatialRunner, build_spatial_apply,
+                                                         spatial_rejection_reason)
+    from innfer_tpu_torch.pipeline import (InferenceSession, _postprocess_u8, np2tensor,
+                                           select_presets)
+    from innfer_tpu_torch.tiling.engine import TiledRunner
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    virtual = lambda n_data, n_model=1: make_mesh(  # noqa: E731
+        n_data, n_model, devices=[dev] * (n_data * n_model))
+
+    # (a) the device check
+    n_dev = torch.cuda.device_count()
+    msg = "(more than one card: make_mesh(n_data=2) is a real mesh here)"
+    if n_dev < 2:
+        try:
+            make_mesh(n_data=2)
+            fail("make_mesh(n_data=2) built a mesh on a one-card machine")
+        except ValueError as e:
+            msg = str(e)
+    one = make_mesh()
+    print(f"[parallel] make_mesh(n_data=2) on {n_dev} card(s): {msg}; make_mesh(): "
+          f"{one.shape} of {one.devices}", flush=True)
+    if n_dev == 1 and (one.shape != {"data": 1, "model": 1}
+                       or one.devices != [[torch.device("cuda", 0)]]):
+        fail(f"make_mesh() on one card is {one.shape} of {one.devices}")
+
+    # (b) halo_conv2d at the main path's trunk shape, 4 shards of cuda:0
+    mesh4 = virtual(4)
+    g = torch.Generator().manual_seed(170)
+    x = torch.randn(*halo_shape, generator=g).to(dev)
+    w = (torch.randn(NF, NF, 3, 3, generator=g) / 24).to(dev)
+    b = (torch.randn(NF, generator=g) * 0.02).to(dev)
+    parts = []
+    for dt in (fp32, bf16):
+        xd, wd = x.to(dt), w.to(dt)
+        out = halo_conv2d(xd, wd, b, mesh=mesh4)
+        ref = F.conv2d(xd, wd, b, padding=1)
+        peak = ref.float().abs().max().item()
+        err = (out.float() - ref.float()).abs().max().item()
+        db = psnr(out.float().cpu(), ref.float().cpu(), peak)
+        ms_h = cuda_ms(lambda: halo_conv2d(xd, wd, b, mesh=mesh4), reps=5)
+        ms_p = cuda_ms(lambda: F.conv2d(xd, wd, b, padding=1), reps=5)
+        parts.append(f"{str(dt)[6:]} max_abs {err:.3g} ({err / peak:.3g} of max|ref| {peak:.3g}), "
+                     f"PSNR {db:.1f} dB, {ms_h:.3f} ms against F.conv2d {ms_p:.3f} ms")
+        if not torch.isfinite(out.float()).all() or (
+                err > 1e-4 * peak if dt == fp32 else db < MIN_PSNR_DB):
+            fail(f"halo_conv2d {dt} disagrees with F.conv2d: max_abs {err}, {db:.1f} dB")
+        del out, ref
+    print(f"[parallel] halo_conv2d {halo_shape} -> {NF}, 3x3, 4 shards of cuda:0 against "
+          f"F.conv2d (bars: fp32 1e-4 x max|ref|, bf16 {MIN_PSNR_DB} dB): " + "; ".join(parts),
+          flush=True)
+    del x
+
+    # (c) the spatial forward: the main path's ESRGAN, 4 shards, against the
+    # whole-image forward with the plain tail (the form the spatial path
+    # computes; its trunk runs the kernel)
+    imgs = {n: iio.read_img(os.path.join(main["in_dir"], f"{n}.png")) for n in main["sizes"]}
+    big, small = list(main["sizes"])[-1], list(main["sizes"])[0]
+    model, p16 = load_model(main["ckpt"], param_dtype=bf16)
+    apply4 = build_spatial_apply(model.cfg, mesh4)
+    whole_u8 = {}
+    with tail_form("a"):
+        for n, img in imgs.items():
+            t = np2tensor(img, dtype=bf16, device=dev)
+            whole_u8[n], ms_w = timed_once(
+                torch, lambda: _postprocess_u8(model.apply(p16, t)).cpu().numpy())
+            if n == big:
+                ms_whole = ms_w
+    t = np2tensor(imgs[big], dtype=bf16, device=dev)
+    reset_counts()
+    sp_u8, ms_sp = timed_once(torch, lambda: _postprocess_u8(apply4(p16, t)).cpu().numpy())
+    counts = read_counts()
+    db16 = psnr(sp_u8, whole_u8[big], 255.0)
+    del t
+    p32 = {k: v.float() for k, v in p16.items()}
+    t = np2tensor(imgs[small], dtype=fp32, device=dev)
+    sp32, ms_sp32 = timed_once(torch, lambda: apply4(p32, t))
+    with tail_form("a"):
+        wh32, ms_wh32 = timed_once(torch, lambda: model.apply(p32, t))
+    db32 = psnr(sp32.cpu(), wh32.cpu(), max(1.0, wh32.abs().max().item()))
+    print(f"[parallel] spatial ESRGAN 4x nb=23 on 4 shards of cuda:0: {big} bf16 "
+          f"{tuple(sp_u8.shape)}, u8 PSNR {db16:.1f} dB against the whole-image plain-tail "
+          f"forward (bar {MIN_PSNR_DB}), {ms_sp:.1f} ms against {ms_whole:.1f} ms whole image "
+          f"(CUDA events; overhead on one card, not scaling), kernel launches {counts}; "
+          f"{small} fp32 PSNR {db32:.1f} dB (bar 80), {ms_sp32:.1f} ms against "
+          f"{ms_wh32:.1f} ms", flush=True)
+    if db16 < MIN_PSNR_DB or db32 < 80.0 or any(counts.values()):
+        fail(f"spatial ESRGAN: bf16 {db16:.1f} dB, fp32 {db32:.1f} dB, launches {counts}")
+    if sp_u8.shape != (4 * imgs[big].shape[0], 4 * imgs[big].shape[1], 3):
+        fail(f"spatial ESRGAN output shape {sp_u8.shape}")
+    del sp32, wh32, t
+
+    # SRResNet through SpatialRunner on 8 shards of 540x960 (540 = 8 * 67 + 4)
+    h, w = main["sizes"][small]
+    sr_model, sr32 = load_model(os.path.join(work, "4x_synth_srresnet.pth"), param_dtype=fp32)
+    mesh8 = virtual(8)
+    runner = SpatialRunner(sr_model, mesh8)
+    t = np2tensor(imgs[small], dtype=fp32, device=dev)
+    reset_counts()
+    out, ms_r = timed_once(torch, lambda: runner(replicate_params(sr32, mesh8), t))
+    counts = read_counts()
+    with tail_form("a"):
+        ref = sr_model.apply(sr32, t)
+    keep = (h - 40) * 4  # rows beyond the padded rows' receptive field
+    db_r = psnr(out[:, :keep].cpu(), ref[:, :keep].cpu(), max(1.0, ref.abs().max().item()))
+    print(f"[parallel] SRResNet 4x nf=64 nb=16 through SpatialRunner, 8 shards of cuda:0, "
+          f"{h}x{w} fp32 (padded to {-(-h // 8) * 8} rows): output {tuple(out.shape)}, rows < "
+          f"{keep} PSNR "
+          f"{db_r:.1f} dB against the whole-image plain-tail forward (bar 80), {ms_r:.1f} ms, "
+          f"kernel launches {counts}", flush=True)
+    if tuple(out.shape) != (1, 4 * h, 4 * w, 3) or db_r < 80.0 or any(counts.values()):
+        fail(f"SpatialRunner SRResNet: shape {tuple(out.shape)}, {db_r:.1f} dB, {counts}")
+    del out, ref, t
+
+    # (d) the session under spatial=True
+    sess = InferenceSession(main["ckpt"], compute_dtype=bf16, mesh=mesh4, spatial=True)
+    written, wall, ev, counts = run_session(torch, sess, main["in_dir"],
+                                            os.path.join(work, "par_spatial"))
+    dbs = []
+    for path, (n, (ih, iw)) in zip(written, main["sizes"].items()):
+        got = iio.read_img(path)
+        if got is None or got.shape != (4 * ih, 4 * iw, 3):
+            fail(f"{path}: expected a ({4 * ih}, {4 * iw}, 3) PNG")
+        dbs.append(psnr(got, whole_u8[n], 255.0))
+    try:
+        InferenceSession(os.path.join(work, "4x_synth_pan.pth"), compute_dtype=bf16,
+                         mesh=mesh4, spatial=True)
+        fail("the spatial session accepted PAN")
+    except NotImplementedError as e:
+        pan_msg = str(e)
+    print(f"[parallel] InferenceSession(spatial=True) on 4 shards of cuda:0, bf16: "
+          f"{len(written)} 4x PNGs, PSNR {', '.join(f'{d:.1f}' for d in dbs)} dB against the "
+          f"whole-image plain-tail forwards (bar {MIN_PSNR_DB}); forward ms per image "
+          f"{', '.join(f'{e:.1f}' for e in ev)}, wall {wall:.3f} s; kernel launches {counts}; "
+          f"PAN refused: {pan_msg!r}", flush=True)
+    if min(dbs) < MIN_PSNR_DB or any(counts.values()):
+        fail(f"the spatial session: {dbs} dB, launches {counts}")
+    if pan_msg != "--spatial: " + spatial_rejection_reason({"type": "pan_net"}):
+        fail(f"PAN's refusal does not carry the reason: {pan_msg!r}")
+    del sess
+
+    # (e) dp tiles: the main path's session on 2 data slices, auto mode
+    mesh2 = virtual(2)
+    one_dir = os.path.join(work, "par_one")
+    os.makedirs(one_dir)
+    os.symlink(os.path.join(main["in_dir"], f"{small}.png"), os.path.join(one_dir, f"{small}.png"))
+    dp = InferenceSession(main["ckpt"], compute_dtype=bf16, tile_mode="auto", mesh=mesh2)
+    st = dp.stages[0]
+    dp_written, dp_wall, dp_ev, dp_counts = run_session(torch, dp, one_dir,
+                                                        os.path.join(work, "par_dp"))
+    plan = st.runner.plan_for(h, w, on_cuda=True)
+    slices = dp_slices(plan.n_tiles, st.runner.tile_batch, 2)
+    free = TiledRunner(st.model.apply, 4, mode="auto", overlap=st.runner.overlap,
+                       tile_batch=st.runner.tile_batch, compute_dtype=bf16)
+    fplan = free.plan_for(h, w, on_cuda=True)
+    if (fplan.tile_h, fplan.tile_w, fplan.starts_h, fplan.starts_w) != (
+            plan.tile_h, plan.tile_w, plan.starts_h, plan.starts_w) or st.runner.last_mode != "auto":
+        fail(f"dp runner ran {st.runner.last_mode} on another plan than the mesh-free runner")
+    t = np2tensor(imgs[small], dtype=bf16, device=dev)
+    pdev = params_on(st.params, dev)
+    u8_m = _postprocess_u8(st.runner(st.params, t)).cpu().numpy()
+    u8_f = _postprocess_u8(free(pdev, t)).cpu().numpy()
+    ms_m = cuda_ms(lambda: st.runner(st.params, t), reps=2)
+    ms_f = cuda_ms(lambda: free(pdev, t), reps=2)
+    share, db = u8_close(u8_m, u8_f), psnr(u8_m, u8_f, 255.0)
+    # fp32 on a 64x64 crop, uniform 32-px tiles (9 tiles: groups of 8 and 1,
+    # so slices of 4, 4 and 1): against a mesh-free runner whose groups have
+    # the slices' composition (tile_batch 4), which isolates the mesh code,
+    # and against one at the same tile_batch, whose launches take 8 tiles
+    # (cuDNN's results vary with the batch: the bar is about 10x the
+    # 4.58e-05 the H100 showed there)
+    crop = np2tensor(imgs[small][:64, :64], dtype=fp32, device=dev)
+    q32 = {k: v.float() for k, v in pdev.items()}
+    kw = dict(mode="uniform", tile=32, overlap=8, compute_dtype=fp32)
+    m32 = TiledRunner(st.model.apply, 4, mesh=mesh2, tile_batch=8, **kw)(
+        replicate_params(q32, mesh2), crop)
+    s32 = TiledRunner(st.model.apply, 4, tile_batch=4, **kw)(q32, crop)
+    f32 = TiledRunner(st.model.apply, 4, tile_batch=8, **kw)(q32, crop)
+    err32 = (m32 - s32).abs().max().item()
+    err_tb = (m32 - f32).abs().max().item()
+    db_tb = psnr(m32.cpu(), f32.cpu(), max(1.0, f32.abs().max().item()))
+    print(f"[parallel] dp tiles: the main path's session on 2 data slices of cuda:0, bf16 auto "
+          f"(mode {st.runner.last_mode}), {small}: {plan.n_tiles} tiles of {plan.tile_h}x"
+          f"{plan.tile_w} in groups of {st.runner.tile_batch}, {slices} slices, fused_rdb "
+          f"launches {dp_counts['fused_rdb']} (69 x {slices} = {69 * slices}); runner "
+          f"{ms_m:.1f} ms against {ms_f:.1f} ms mesh-free (CUDA events; overhead on one card); "
+          f"u8 against the mesh-free runner {100 * share:.4f}% within one level (bar 99.9%), "
+          f"PSNR {db:.1f} dB (bar {MIN_PSNR_DB}); fp32 64x64 crop max_abs {err32:.3g} against "
+          f"the slices' composition (bar 1e-5), {err_tb:.3g} (bar 5e-4; PSNR {db_tb:.1f} dB, "
+          f"max|ref| {f32.abs().max().item():.3g}) against the same tile_batch; session wall "
+          f"{dp_wall:.3f} s", flush=True)
+    if dp_counts != {"fused_rdb": 69 * slices, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0,
+                     "fused_resnet_block": 0}:
+        fail(f"dp tiles launched {dp_counts}, expected 69 x {slices} fused_rdb")
+    if share < 0.999 or db < MIN_PSNR_DB or err32 > 1e-5 or err_tb > 5e-4 or len(dp_written) != 1:
+        fail(f"dp tiles vs mesh-free: {share:.5f}, {db:.1f} dB, fp32 {err32}, {err_tb}")
+
+    # (f) tp: a (2 data x 2 model) mesh against replicated params
+    mesh22 = virtual(2, 2)
+    tps = InferenceSession(main["ckpt"], compute_dtype=bf16, tile_mode="auto", mesh=mesh22)
+    n_sharded = sum(hasattr(v, "tp_shards") for v in params_on(tps.stages[0].params, dev).values())
+    tp_written, tp_wall, _, tp_counts = run_session(torch, tps, one_dir,
+                                                    os.path.join(work, "par_tp"))
+    tp_share, _, tp_db = u8_diff(tp_written, dp_written)
+    tp32 = params_on(tp_shard_params(q32, mesh22), dev)
+    a = st.model.apply(tp32, crop)
+    b = st.model.apply(q32, crop)
+    tp_err = (a - b).abs().max().item()
+    tp_db32 = psnr(a.cpu(), b.cpu(), max(1.0, b.abs().max().item()))
+    print(f"[parallel] tp: the session on (2 data x 2 model) of cuda:0, bf16 auto, {small}: "
+          f"{n_sharded} of {len(q32)} params sharded; fused_rdb launches "
+          f"{tp_counts['fused_rdb']} (on gathered weights; 69 x {slices}); u8 against the "
+          f"replicated dp run PSNR {tp_db:.1f} dB (bar {MIN_PSNR_DB}), {100 * tp_share:.4f}% "
+          f"within one level; fp32 64x64 crop whole-model max_abs {tp_err:.3g} against "
+          f"replicated (bar 1e-5; PSNR {tp_db32:.1f} dB, max|ref| {b.abs().max().item():.3g}); "
+          f"wall {tp_wall:.3f} s", flush=True)
+    if tp_counts["fused_rdb"] != 69 * slices or tp_db < MIN_PSNR_DB or tp_err > 1e-5:
+        fail(f"tp: launches {tp_counts}, {tp_db:.1f} dB, fp32 {tp_err}")
+    del dp, tps
+
+    # (g) batched dp: run_batch's whole-image stack split over 2 data slices
+    p2p_dir = os.path.join(work, "batch_p2p_in")
+    p2p_imgs = [iio.read_img(os.path.join(p2p_dir, f))
+                for f in sorted(os.listdir(p2p_dir)) if f.endswith("_256x256.png")][:8]
+    cg_dir = os.path.join(work, "batch_cg_in")
+    cg_imgs = [iio.read_img(os.path.join(cg_dir, f)) for f in sorted(os.listdir(cg_dir))]
+    lines = []
+    cases = (("pix2pix unet_256 ngf=64", "p2p_synth_unet256.pth", "unet_256", p2p_imgs, (bf16,)),
+             ("CycleGAN resnet_9blocks ngf=64", "cyclegan9_synth.pth", "resnet_9blocks", cg_imgs,
+              (bf16, fp32)))
+    for label, name, arch, batch_imgs, dts in cases:
+        for dt in dts:
+            outs, counts, ms_b = {}, {}, {}
+            for key, mesh in (("mesh", mesh2), ("free", None)):
+                sess = InferenceSession(os.path.join(work, name), arch=arch, compute_dtype=dt,
+                                        mesh=mesh, presets=select_presets(arch))
+                sess.run_batch(batch_imgs)  # untimed: cuDNN's set-up of the shapes
+                reset_counts()
+                outs[key], ms_b[key] = timed_once(torch, lambda: sess.run_batch(batch_imgs))
+                counts[key] = read_counts()["fused_resnet_block"]
+            d = [np.abs(a.astype(np.int32) - b.astype(np.int32))
+                 for a, b in zip(outs["mesh"], outs["free"])]
+            share = float(np.mean([(x <= 1).mean() for x in d]))
+            worst = max(int(x.max()) for x in d)
+            db = psnr(np.stack(outs["mesh"]), np.stack(outs["free"]), 255.0)
+            lines.append(f"{label} {str(dt)[6:]} x{len(batch_imgs)} "
+                         f"{batch_imgs[0].shape[0]}x{batch_imgs[0].shape[1]}: "
+                         f"{100 * share:.4f}% within one level, max diff {worst}, PSNR {db:.1f} "
+                         f"dB; fused_resnet_block {counts['mesh']} against {counts['free']} "
+                         f"mesh-free; {ms_b['mesh']:.1f} ms against {ms_b['free']:.1f} ms "
+                         f"(second run)")
+            if arch == "unet_256":
+                ok = share == 1.0 and counts == {"mesh": 0, "free": 0}
+            else:
+                ok = (counts == {"mesh": 18, "free": 9}
+                      and (db >= MIN_PSNR_DB if dt == bf16 else share == 1.0))
+            if not ok:
+                fail(f"batched dp {label} {dt}: {lines[-1]}")
+    print("[parallel] batched dp, run_batch on 2 data slices of cuda:0 against no mesh (bars: "
+          "pix2pix and CycleGAN fp32 100% within one level, CycleGAN bf16 "
+          f"{MIN_PSNR_DB} dB; 9 fused_resnet_block launches per slice of (4,128,128,256)): "
+          + "; ".join(lines), flush=True)
+
+
+MP_SCRIPT = """
+import atexit, runpy, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, {root!r})
+def report():
+    from innfer_tpu_torch.ops.rdb import fused_rdb
+    print("MP_REPORT", fused_rdb.launches, time.perf_counter() - t0, flush=True)
+atexit.register(report)
+sys.argv = ["innfer_tpu_torch.cli"] + sys.argv[1:]
+runpy.run_module("innfer_tpu_torch.cli", run_name="__main__", alter_sys=True)
+"""
+
+
+def phase_multiproc(dev, work, main, size=(540, 960), cli_args=()):
+    """Two CLI processes share cuda:0, joined over gloo at a localhost
+    coordinator; each writes its stripe, and the stripes together equal a
+    single-process CLI run."""
+    import gc
+    import socket
+
+    import numpy as np
+    import torch
+
+    from innfer_tpu_torch.io import images as iio
+
+    # the children share the card with this process: hand back the blocks
+    # the earlier phases left in PyTorch's caching allocator
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() / 2 ** 30
+    in_dir = os.path.join(work, "mp_in")
+    os.makedirs(in_dir)
+    for i in range(4):
+        iio.save_img(synth_image(*size, seed=180 + i),
+                     os.path.join(in_dir, f"{i}_{size[0]}x{size[1]}.png"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = MP_SCRIPT.format(root=HERE)
+    env = dict(os.environ, PYTHONPATH=HERE, GLOO_SOCKET_IFNAME="lo")
+    base = [sys.executable, "-c", script, "-m", main["ckpt"], "-i", in_dir, *cli_args]
+
+    def start(out, extra):
+        return subprocess.Popen(base + ["-o", out] + extra, cwd=HERE, env=env,
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish(procs):
+        results = []
+        try:
+            for p, t0 in procs:
+                log = p.communicate(timeout=300)[0]
+                results.append((p.returncode, log, time.perf_counter() - t0))
+        finally:
+            for p, _ in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        return results
+
+    outs = [os.path.join(work, f"mp_out{r}") for r in (0, 1)]
+    procs = [(start(outs[r], ["--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+                              "--process-id", str(r)]), time.perf_counter()) for r in (0, 1)]
+    results = finish(procs)
+    single = os.path.join(work, "mp_single")
+    results += finish([(start(single, []), time.perf_counter())])
+    reports = []
+    for rc, log, wall in results:
+        rep = [ln.split() for ln in log.splitlines() if ln.startswith("MP_REPORT")]
+        if rc != 0 or not rep:
+            fail(f"a [multiproc] CLI process exited {rc}:\n{log[-4000:]}")
+        reports.append((int(rep[-1][1]), float(rep[-1][2]), wall))
+    names = sorted(os.listdir(in_dir))
+    got = [sorted(os.listdir(o)) for o in outs]
+    want = [[n for i, n in enumerate(names) if i % 2 == r] for r in (0, 1)]
+    if got != want:
+        fail(f"the processes wrote {got}, expected the stripes {want}")
+    pairs = [(os.path.join(outs[i % 2], n), os.path.join(single, n)) for i, n in enumerate(names)]
+    share, worst, db = u8_diff(*zip(*pairs))
+    same = all(np.array_equal(iio.read_img(a), iio.read_img(b)) for a, b in pairs)
+    print(f"[multiproc] 2 CLI processes on cuda:0 (gloo, coordinator 127.0.0.1), 4 PNGs of "
+          f"{size[0]}x{size[1]}, bf16: " + "; ".join(
+              f"rank {r}: wrote {got[r]}, fused_rdb launches {reports[r][0]} (69 per image), "
+              f"wall {reports[r][2]:.2f} s ({reports[r][1]:.2f} s inside the process)"
+              for r in (0, 1))
+          + f"; one process: fused_rdb {reports[2][0]}, wall {reports[2][2]:.2f} s; this "
+          f"process held {held:.2f} GiB of the card meanwhile; union "
+          f"against it: {'identical' if same else 'not identical'}, {100 * share:.4f}% within "
+          f"one level (bar 100%), max diff {worst}, PSNR {db:.1f} dB", flush=True)
+    if [r[0] for r in reports] != [138, 138, 276] or share < 1.0:
+        fail(f"[multiproc]: launches {[r[0] for r in reports]}, share {share}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "innfer_tpu_torch")):
         fail("innfer_tpu_torch/ is not beside chip_smoke.py: run it from a checkout")
@@ -2269,6 +2700,8 @@ def main() -> int:
             phase_evsrgan(dev, work, main)
             phase_convert(dev, work, main)
             phase_stages(dev, work, main)
+            phase_parallel(dev, work, main)
+            phase_multiproc(dev, work, main)
     rdb_src = "innfer_tpu_torch/ops/csrc/rdb.cu"
     kernels = [
         {"name": "fused_rdb", "route": "cuda", "source": rdb_src,

@@ -6,6 +6,8 @@
         [--tile-mode auto|uniform|reference|hybrid|none] [--tile-batch N]
         [--batch N] [--fused-chain] [--timing] [--profile DIR]
         [--metrics DIR] [--shard-index I --num-shards N]
+        [--dp N] [--tp N] [--spatial]
+        [--coordinator HOST:PORT --num-processes N --process-id R]
 
 ``-m`` takes one model or a chain joined with ``+`` or ``>``, run one
 stage after another (``--fused-chain``: one tile pass through every
@@ -22,12 +24,16 @@ presets and runs other families one image at a time.  Runs on the CUDA
 device (bf16 compute) and raises with no card unless ``-cpu`` is given;
 ``-cpu`` and ``-no_fp16`` compute in fp32.
 
-The flags are the JAX CLI's (innfer_tpu/cli.py) less those that have no
-counterpart here: ``--bucket`` pads XLA compile shapes, which eager
-PyTorch does not have; ``--dp``, ``--tp``, ``--spatial`` and the
-``jax.distributed`` flags (``--coordinator``, ``--num-processes``,
-``--process-id``) are multi-device execution (ROADMAP.md queue A17).
-``--shard-index``/``--num-shards`` default to shard 0 of 1.
+``--dp N`` splits the tile groups (and whole-image stacks) over N local
+devices, ``--tp N`` shards conv output channels over N, and ``--spatial``
+runs each image's forward H-sharded over the ``--dp`` devices with halo
+exchange (``parallel/``).  ``--coordinator``/``--num-processes``/
+``--process-id`` join a multi-process run (torch.distributed, gloo over
+TCP); ``--shard-index``/``--num-shards`` default to its rank and world
+size, so each process writes its own stripe of the directory.
+
+The flags are the JAX CLI's (innfer_tpu/cli.py) less ``--bucket``, which
+pads XLA compile shapes, which eager PyTorch does not have.
 """
 from __future__ import annotations
 
@@ -37,12 +43,20 @@ import sys
 import torch
 
 
-def resolve_batch(batch: int, presets) -> int:
+def resolve_batch(batch: int, presets, spatial: bool = False) -> int:
     """``--batch 0`` (auto): the image-to-image families (pix2pix,
     CycleGAN, WBC) take groups sized by ``InferenceSession.auto_batch``
     (0); every other family runs one image at a time (1) unless the user
-    asks.  The JAX package's rule (innfer_tpu/cli.py:22-49) without its
-    ``--spatial`` branch."""
+    asks.  ``--spatial`` asks for an execution strategy that batching
+    would bypass, so it runs one image at a time and refuses an explicit
+    batch.  The JAX package's rule (innfer_tpu/cli.py:22-49)."""
+    if spatial:
+        if batch > 1:
+            raise SystemExit(
+                "--batch and --spatial are incompatible: batched groups "
+                "run stacked forwards, bypassing the H-sharded spatial "
+                "runner you asked for")
+        return 1
     if batch:
         return batch
     return 0 if presets.family in ("pix2pix", "cyclegan", "wbc") else 1
@@ -97,17 +111,61 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Log per-stage wall-clock timings.")
     p.add_argument("--metrics", type=str, default="",
                    help="Ground-truth dir: compute PSNR/SSIM per output.")
-    p.add_argument("--shard-index", type=int, default=0,
-                   help="This process's shard of the image list.")
-    p.add_argument("--num-shards", type=int, default=1,
-                   help="Processes striping the image list.")
+    p.add_argument("--shard-index", type=int, default=None,
+                   help="This process's shard of the image list (defaults to "
+                   "its rank in a multi-process run, else 0).")
+    p.add_argument("--num-shards", type=int, default=None,
+                   help="Processes striping the image list (defaults to the "
+                   "multi-process run's world size, else 1).")
+    p.add_argument("--dp", type=int, default=0,
+                   help="Data-parallel: split the tile groups over this many "
+                   "local devices (-1 = all devices not used by --tp; 0 or 1 "
+                   "= no mesh).")
+    p.add_argument("--tp", type=int, default=1,
+                   help="Tensor-parallel: shard conv output channels over "
+                   "this many devices.")
+    p.add_argument("--spatial", action="store_true",
+                   help="Whole-image forwards H-sharded over the --dp devices "
+                   "(halo-exchange convs) instead of tiling; for images too "
+                   "large to tile-batch.  Not combinable with --tp.")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="Multi-process rendezvous address, host:port "
+                   "(torch.distributed, gloo over TCP).")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="Processes of the multi-process run.")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="This process's rank in the multi-process run.")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from innfer_tpu_torch.parallel.multihost import init_distributed, shutdown_distributed
+
+    # join the processes first: their rank and world size set the stripes
+    rank, world = init_distributed(args.coordinator, args.num_processes, args.process_id)
+    try:
+        return _run(args, rank, world)
+    finally:
+        shutdown_distributed()
+
+
+def _run(args, rank: int, world: int) -> int:
     from innfer_tpu_torch.observability import StageTimers, profile_trace
+    from innfer_tpu_torch.parallel.mesh import local_devices, make_mesh
     from innfer_tpu_torch.pipeline import InferenceSession, select_presets
+
+    shard_index = rank if args.shard_index is None else args.shard_index
+    num_shards = world if args.num_shards is None else args.num_shards
+    mesh = None
+    if args.dp not in (0, 1) or args.tp > 1:
+        # --dp 0/1 means no data parallelism (a 1-wide data axis); only the
+        # explicit -1 asks for every device not used by --tp
+        n_data = None if args.dp == -1 else max(1, args.dp)
+        mesh = make_mesh(n_data=n_data, n_model=args.tp,
+                         devices=local_devices("cpu" if args.cpu else "cuda"))
+    if args.spatial and mesh is None:
+        raise SystemExit("--spatial requires a device mesh; add --dp N")
 
     presets = select_presets(args.arch, args.models, norm_flag=args.norm)
     if args.tile_mode == "none":
@@ -125,13 +183,15 @@ def main(argv=None) -> int:
         scale=args.scale,
         device="cpu" if args.cpu else None,
         fused_chain=args.fused_chain,
+        mesh=mesh,
+        spatial=args.spatial,
     )
     timers = StageTimers() if args.timing else None
     with profile_trace(args.profile):
         session.process(args.input, args.output, use_color_fix=args.cf, comp=args.comp,
-                        shard_index=args.shard_index, num_shards=args.num_shards,
+                        shard_index=shard_index, num_shards=num_shards,
                         metrics_dir=args.metrics or None, timers=timers,
-                        batch=resolve_batch(args.batch, presets))
+                        batch=resolve_batch(args.batch, presets, spatial=args.spatial))
     if timers is not None:
         timers.log_report()
     return 0

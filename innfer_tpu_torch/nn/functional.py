@@ -20,6 +20,16 @@ runs as an fp32 convolution of the bf16-valued operands with TF32 allowed:
 bf16 values are exact in TF32 and their products exact in fp32, so TF32
 loses nothing here (on the CPU the flag is moot and the conv is true
 fp32).  A bf16 cuDNN conv would round the bias to bf16 before adding it.
+
+Tensor parallelism (``parallel/mesh.tp_shard_params``): a conv weight
+sharded on its output channels carries its shards as ``w.tp_shards``;
+:func:`conv2d` (ungrouped) and :func:`conv_transpose2d` run one shard per
+model device and concatenate the outputs on the input's device, each
+shard's conv through the same accumulate route and TF32 guard.  Every
+other consumer of a sharded parameter (the fused kernels' weight packing,
+the tail rewrites' derived weights, norms, PReLU, dense layers) reads the
+gathered tensor: a Pallas call on the TPU cannot be partitioned either,
+so the kernel route runs on gathered weights.
 """
 from __future__ import annotations
 
@@ -89,6 +99,28 @@ def _conv(fn, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
     return out.movedim(1, -1)
 
 
+def _conv_any(fn, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
+              out_dtype=None, **kw) -> torch.Tensor:
+    """:func:`_conv`, or, where ``w`` is tensor-parallel sharded on its
+    output channels (``w.tp_shards``, set by
+    ``parallel/mesh.tp_shard_params``) and the conv is not grouped, one
+    conv per shard on its model device with ``x`` copied there, the
+    outputs concatenated on ``x``'s device: the all-gather XLA inserts in
+    the JAX package."""
+    shards = getattr(w, "tp_shards", None)
+    if shards is None or kw.get("groups", 1) != 1:
+        return _conv(fn, x, w, b, out_dtype=out_dtype, **kw)
+    # the bias has the weight's output channels, so the same rule shards it
+    b_shards = (None,) * len(shards) if b is None else b.tp_shards
+    outs = []
+    for ws, bs in zip(shards, b_shards):
+        dev = ws.device
+        xs = x.to(dev, non_blocking=dev.type == "cuda")
+        outs.append(_conv(fn, xs, ws, bs, out_dtype=out_dtype, **kw))
+    return torch.cat([o.to(x.device, non_blocking=x.device.type == "cuda") for o in outs],
+                     dim=-1)
+
+
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
     """NHWC -> NCHW view (channels-last memory when ``x`` is contiguous)."""
     return x.permute(0, 3, 1, 2)
@@ -126,8 +158,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
             pads = (left, right, top, bottom)
             fn = lambda t, wt, bt, **kw: TF.conv2d(TF.pad(t, pads), wt, bt, **kw)  # noqa: E731
             padding = 0
-    return _conv(fn, x, w, b, out_dtype=out_dtype, stride=stride,
-                 padding=padding, dilation=dilation, groups=groups)
+    return _conv_any(fn, x, w, b, out_dtype=out_dtype, stride=stride, padding=padding,
+                     dilation=dilation, groups=groups)
 
 
 def conv3d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
@@ -145,8 +177,8 @@ def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
     ``w`` keeps the checkpoint's (I, O, kh, kw) layout, so no flip is needed:
     out = (in - 1) * stride - 2 * padding + kh + output_padding.  Bias and
     rounding as :func:`conv2d`."""
-    return _conv(TF.conv_transpose2d, x, w, b, stride=stride, padding=padding,
-                 output_padding=output_padding)
+    return _conv_any(TF.conv_transpose2d, x, w, b, stride=stride, padding=padding,
+                     output_padding=output_padding)
 
 
 _MATMUL = torch.backends.cuda.matmul

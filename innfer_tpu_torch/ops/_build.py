@@ -24,6 +24,8 @@ from collections import defaultdict
 from dataclasses import dataclass
 from typing import Dict, List
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "ops", "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -162,3 +164,13 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel failed: CUDA error {err} "
                            f"({lib.innfer_cuda_error_string(err).decode()})")
+
+
+def launch(lib: ctypes.CDLL, entry: str, what: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and ``device``'s
+    current stream, ``device`` being the current CUDA device for the call
+    (a kernel launches on the current device, and into another device's
+    stream it fails); raise on a CUDA error."""
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, err, what)

@@ -572,12 +572,18 @@ cudaError_t launch_wgmma_nt(const Geom& g, const __nv_bfloat16* w, const Epi& ep
   using C = TcCfg<NT>;
   static_assert(C::SMEM <= 227 * 1024, "shared memory");
   static_assert(tc::WG * 4 * NT * 4 + NT * 4 <= C::SMEM, "stats scratch");
-  static bool attr = false;  // once per instantiation and process
-  if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        conv_wgmma<NT, Pad, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  // The attribute belongs to the current device: set it once per
+  // instantiation and device (on every call past the table's devices).
+  constexpr int kDevices = 64;
+  static bool attr[kDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kDevices || !attr[dev]) {
+    e = cudaFuncSetAttribute(conv_wgmma<NT, Pad, Epi>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (e != cudaSuccess) return e;
-    attr = true;
+    if (dev < kDevices) attr[dev] = true;
   }
   const dim3 grid((g.W + tc::TW - 1) / tc::TW, (g.H + C::TH - 1) / C::TH,
                   g.B * ((g.cout + NT - 1) / NT));

@@ -146,11 +146,9 @@ def fused_rdb(x: torch.Tensor, weights: Sequence[torch.Tensor],
     ws = torch.empty((b, h, w, nf + 4 * gc), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     w1 = packed.w1.data_ptr() if (plus and packed.w1 is not None) else None
-    err = lib.innfer_rdb_forward(
-        x.data_ptr(), ws.data_ptr(), out.data_ptr(), packed.w.data_ptr(),
-        packed.b.data_ptr(), w1, b, h, w, nf, gc, int(plus),
-        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "fused_rdb")
+    _build.launch(lib, "innfer_rdb_forward", "fused_rdb", x.device,
+                  x.data_ptr(), ws.data_ptr(), out.data_ptr(), packed.w.data_ptr(),
+                  packed.b.data_ptr(), w1, b, h, w, nf, gc, int(plus), _DTYPE_CODE[x.dtype])
     fused_rdb.launches += 1
     return out
 
@@ -224,12 +222,10 @@ def fused_rdb_padded(ws: torch.Tensor, weights: Sequence[torch.Tensor],
     lib = _build.rdb_library()
     b, h, w, _ = ws.shape
     w1 = packed.w1.data_ptr() if (plus and packed.w1 is not None) else None
-    err = lib.innfer_rdb_forward_ws(
-        ws.data_ptr(), out_ws.data_ptr(), None if res is None else res.data_ptr(),
-        packed.w.data_ptr(), packed.b.data_ptr(), w1, b, h, w, nf, gc, int(plus),
-        _DTYPE_CODE[ws.dtype], res_scale(ws.dtype).item(),
-        torch.cuda.current_stream(ws.device).cuda_stream)
-    _build.check(lib, err, "fused_rdb_padded")
+    _build.launch(lib, "innfer_rdb_forward_ws", "fused_rdb_padded", ws.device,
+                  ws.data_ptr(), out_ws.data_ptr(), None if res is None else res.data_ptr(),
+                  packed.w.data_ptr(), packed.b.data_ptr(), w1, b, h, w, nf, gc, int(plus),
+                  _DTYPE_CODE[ws.dtype], res_scale(ws.dtype).item())
     fused_rdb_padded.launches += 1
     return out_ws
 

@@ -137,12 +137,10 @@ def fused_resnet_block(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Ten
     acc = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     stats = torch.empty(lib.innfer_resnet_block_stats_floats(b, h, w, c, _DTYPE_CODE[x.dtype]),
                         dtype=torch.float32, device=x.device)
-    err = lib.innfer_resnet_block_forward(
-        x.data_ptr(), out.data_ptr(), acc.data_ptr(), stats.data_ptr(),
-        packed.w1.data_ptr(), packed.b1.data_ptr(), packed.w2.data_ptr(),
-        packed.b2.data_ptr(), b, h, w, c, eps, _DTYPE_CODE[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "fused_resnet_block")
+    _build.launch(lib, "innfer_resnet_block_forward", "fused_resnet_block", x.device,
+                  x.data_ptr(), out.data_ptr(), acc.data_ptr(), stats.data_ptr(),
+                  packed.w1.data_ptr(), packed.b1.data_ptr(), packed.w2.data_ptr(),
+                  packed.b2.data_ptr(), b, h, w, c, eps, _DTYPE_CODE[x.dtype])
     fused_resnet_block.launches += 1
     return out
 

@@ -23,15 +23,19 @@ run.py:229-447), for state-dict checkpoints and TorchScript archives
     memory budget, else into shared tile groups (chopped presets), else
     run one by one; ``batch=0`` sizes each shape's group (``auto_batch``);
   * the opt-in fused tile-through-chain (``fused_chain=True``), per-stage
-    timers, and PSNR/SSIM against a ground-truth directory.
+    timers, and PSNR/SSIM against a ground-truth directory;
+  * a device mesh (``mesh=``, ``parallel/mesh.py``): tile groups and
+    whole-image stacks split over its data devices, conv weights sharded
+    over its model devices, or with ``spatial=True`` each image's forward
+    H-sharded over the data devices with halo exchange
+    (``parallel/spatial_model.SpatialRunner``).
 
 bfloat16 replaces the reference's fp16; every conv accumulates in fp32.
 
 Not carried from the JAX package: its CycleGAN batch-4 fence (an XLA
-compile stall), the padding of partial groups to a compiled shape (eager
-PyTorch has no compiled shape to reuse, so a padded image would be wasted
-device work: partial groups run at their natural size), and the mesh
-sharding of a stack (ROADMAP.md queue A17).
+compile stall) and the padding of partial groups to a compiled shape
+(eager PyTorch has no compiled shape to reuse, so a padded image would be
+wasted device work: partial groups run at their natural size).
 """
 from __future__ import annotations
 
@@ -58,7 +62,11 @@ from innfer_tpu_torch.models import get_network
 from innfer_tpu_torch.models.base import ModelDef, Params
 from innfer_tpu_torch.ops import colors
 from innfer_tpu_torch.ops.filters import color_fix, guided_filter
+from innfer_tpu_torch.parallel.mesh import (Mesh, data_parallel, params_on,
+                                            replicate_params, tp_shard_params)
 from innfer_tpu_torch.parallel.multihost import shard_paths
+from innfer_tpu_torch.parallel.spatial_model import (SpatialRunner, spatial_rejection_reason,
+                                                     spatial_supported)
 from innfer_tpu_torch.tiling.engine import TiledRunner
 
 log = logging.getLogger("innfer_tpu_torch")
@@ -302,13 +310,15 @@ def _whole_forward_bytes(model: ModelDef, x_shape: Sequence[int]) -> int:
 
 @dataclass
 class Stage:
-    """One model of the chain plus its tiled runner (None: whole-image
-    forwards)."""
+    """One model of the chain plus its tiled or spatial runner (None:
+    whole-image forwards).  On a ``mesh`` its params are
+    ``parallel/mesh.MeshParams`` and each forward takes its device's."""
 
     model: ModelDef
     params: Params
     chop: bool
     runner: Optional[TiledRunner] = None
+    mesh: Optional[Mesh] = None
     _fallback: Optional[TiledRunner] = None
 
     def __call__(self, x: torch.Tensor, *, force_whole: bool = False) -> torch.Tensor:
@@ -338,9 +348,10 @@ class Stage:
                             x.shape[1], x.shape[2], need / 1024 ** 3)
                 self._fallback = TiledRunner(
                     self.model.apply, self.model.scale, mode="auto",
-                    output_index=self.model.output_index, compute_dtype=x.dtype)
+                    output_index=self.model.output_index, compute_dtype=x.dtype,
+                    mesh=self.mesh)
             return self._fallback(self.params, x)
-        out = self.model.apply(self.params, x)
+        out = self.model.apply(params_on(self.params, x.device), x)
         return out if self.model.output_index is None else out[self.model.output_index]
 
 
@@ -350,7 +361,14 @@ class InferenceSession:
     with the guided filter after each where the preset asks for it.
 
     ``fused_chain=True`` (opt-in, as in the JAX package) runs a chain of
-    two or more models as one tile pass instead (:meth:`build_fused_chain`)."""
+    two or more models as one tile pass instead (:meth:`build_fused_chain`).
+
+    ``mesh`` (``parallel/mesh.make_mesh``) follows the JAX package's rules
+    (innfer_tpu/pipeline.py:455-541): the tile batch is rounded up to a
+    multiple of the data-axis size; params are tp-sharded where the model
+    axis is above 1, else replicated; ``spatial=True`` runs each supported
+    stage through a :class:`SpatialRunner` and refuses the rest, TorchScript
+    and a model axis above 1 with the reason."""
 
     def __init__(
         self,
@@ -368,8 +386,23 @@ class InferenceSession:
         device: DeviceLike = None,
         backend: Optional[str] = None,
         fused_chain: bool = False,
+        mesh: Optional[Mesh] = None,
+        spatial: bool = False,
     ):
         self.device = resolve_device(device)
+        if spatial and mesh is None:
+            raise ValueError("spatial=True needs a device mesh (make_mesh, CLI --dp N)")
+        if spatial and mesh.shape.get("model", 1) > 1:
+            raise NotImplementedError(
+                "--spatial shards the image over the 'data' axis only; "
+                "combining it with --tp would run every halo conv on "
+                "gathered weights.  Use --spatial with --dp alone.")
+        self._mesh = mesh
+        self._spatial = spatial
+        if mesh is not None:
+            # dp requires whole slices per device: round the tile batch up
+            n_data = mesh.shape.get("data", 1)
+            tile_batch = -(-tile_batch // n_data) * n_data
         self.presets = presets or select_presets(arch, models_arg)
         # -s applies to a single model only, like the reference (run.py:
         # 391-394): a chain takes its per-stage scales from the filenames
@@ -388,6 +421,10 @@ class InferenceSession:
         for path, sc, ts in zip(paths, scales, is_ts):
             runner = None
             if ts:
+                if spatial:
+                    raise NotImplementedError(
+                        "--spatial cannot shard a TorchScript module (its "
+                        "forward is opaque to the halo exchange); remove --spatial")
                 model, params = load_torchscript(path, device=self.device, scale=sc)
                 if self.presets.chop:
                     runner = FitTileRunner(model.apply, model.scale, tile=tile,
@@ -408,14 +445,27 @@ class InferenceSession:
                     rebuilt = get_network({**model.cfg, "meval": False})
                     rebuilt.remap = model.remap
                     model = rebuilt
-                if self.presets.chop:
+                if mesh is not None and mesh.shape.get("model", 1) > 1:
+                    params = tp_shard_params(params, mesh, transposed=model.transposed_keys)
+                elif mesh is not None:
+                    params = replicate_params(params, mesh)
+                if spatial:
+                    # the whole image's forward, H-sharded over the mesh
+                    # with per-conv halo exchange
+                    if not spatial_supported(model.cfg):
+                        raise NotImplementedError(
+                            "--spatial: " + spatial_rejection_reason(model.cfg))
+                    runner = SpatialRunner(model, mesh)
+                elif self.presets.chop:
                     runner = TiledRunner(
                         model.apply, model.scale, mode=tile_mode, tile=tile,
                         overlap=overlap, tile_batch=tile_batch,
                         compute_dtype=self.compute_dtype, trunk_fn=model.apply_trunk,
                         tail_fn=model.apply_tail, tail_halo=model.tail_halo,
-                        trunk_kernel=model.trunk_kernel, output_index=model.output_index)
-            self.stages.append(Stage(model, params, self.presets.chop, runner))
+                        trunk_kernel=model.trunk_kernel, output_index=model.output_index,
+                        mesh=mesh)
+            self.stages.append(Stage(model, params, self.presets.chop or spatial, runner,
+                                     mesh=mesh))
         self._fused_runner: Optional[TiledRunner] = None
         if fused_chain and len(self.stages) > 1:
             if self.presets.use_guided_filter:
@@ -434,7 +484,7 @@ class InferenceSession:
             fused_overlap = min(overlap * len(self.stages), fused_tile // 3)
             self._fused_runner = self.build_fused_chain(
                 tile=fused_tile, overlap=fused_overlap, tile_batch=tile_batch,
-                mode="auto" if tile_mode == "hybrid" else tile_mode)
+                mode="auto" if tile_mode == "hybrid" else tile_mode, mesh=mesh)
         self.last_metrics: List[dict] = []
         log.info("innfer_tpu_torch session on %s, %s compute, %d stage(s), image "
                  "codec: %s", self.device, self.compute_dtype, len(self.stages),
@@ -452,7 +502,8 @@ class InferenceSession:
         return any(st.model.cfg.get("type") == "torchscript" for st in self.stages)
 
     def build_fused_chain(self, *, tile: int = 128, overlap: int = 8,
-                          tile_batch: int = 8, mode: str = "uniform") -> TiledRunner:
+                          tile_batch: int = 8, mode: str = "uniform",
+                          mesh: Optional[Mesh] = None) -> TiledRunner:
         """Tile-through-chain execution: one tile pass runs every stage on
         each tile and blends once at the final scale, so no intermediate
         image is materialized.  Opt-in, as in the JAX package (slower
@@ -464,13 +515,13 @@ class InferenceSession:
 
         def chained(_params, t):
             for st in stages:
-                out = st.model.apply(st.params, t)
+                out = st.model.apply(params_on(st.params, t.device), t)
                 t = out if st.model.output_index is None else out[st.model.output_index]
             return t
 
         return TiledRunner(chained, self.total_scale, mode=mode, tile=tile,
                            overlap=overlap, tile_batch=tile_batch,
-                           compute_dtype=self.compute_dtype)
+                           compute_dtype=self.compute_dtype, mesh=mesh)
 
     def prepare(self, img: np.ndarray) -> np.ndarray:
         if self.presets.resize:
@@ -579,7 +630,13 @@ class InferenceSession:
         takes per-image statistics (``nn/functional.batch_norm``).  A CycleGAN
         stack runs whole-image, so its instance norm takes whole-image
         statistics, where a lone image runs tiled with per-tile ones, as
-        in the JAX package."""
+        in the JAX package.
+
+        On a mesh whose model axis is 1, a whole-image stack that divides by
+        the data-axis size is split over the data devices (one slice of
+        images each) and gathered before the u8 rounding; a tiled stack
+        splits its own tile groups.  A spatial session stacks no tiles: its
+        runner shards one image."""
         if not already_prepared:
             imgs = [self.prepare(im) for im in imgs]
         imgs = [im[:, :, None] if im.ndim == 2 else im for im in imgs]
@@ -587,8 +644,8 @@ class InferenceSession:
         same = all(im.shape == imgs[0].shape and im.dtype == imgs[0].dtype for im in imgs)
         whole_ok = (same and self._fused_runner is None
                     and self.batchable(imgs[0].shape, n))
-        tiled_ok = (not whole_ok and same and self.presets.chop and not self.has_torchscript
-                    and self.batchable_tiled(imgs[0].shape, n))
+        tiled_ok = (not whole_ok and same and self.presets.chop and not self._spatial
+                    and not self.has_torchscript and self.batchable_tiled(imgs[0].shape, n))
         if not whole_ok and not tiled_ok:
             return [self.run_image(im, already_prepared=True, host_copy=host_copy,
                                    color_ref=im if use_color_fix else None)
@@ -596,8 +653,15 @@ class InferenceSession:
         stacked = np.stack(imgs)
         t_img = np2tensor(stacked, normalize=self.presets.normalize,
                           dtype=self.compute_dtype, device=self.device)
-        u8 = _postprocess_u8(self.forward(t_img, force_whole=whole_ok),
-                             denormalize=self.presets.normalize, batched=True)
+        mesh = self._mesh
+        if (whole_ok and mesh is not None and mesh.shape.get("model", 1) == 1
+                and n % mesh.shape.get("data", 1) == 0):
+            # image-level dp: the images are independent, each data device
+            # runs its slice of the stack with its replicated params
+            t_out = data_parallel(lambda t: self.forward(t, force_whole=True), t_img, mesh)
+        else:
+            t_out = self.forward(t_img, force_whole=whole_ok)
+        u8 = _postprocess_u8(t_out, denormalize=self.presets.normalize, batched=True)
         if use_color_fix:
             u8 = color_fix(torch.from_numpy(stacked).to(self.device), u8)
         outs = HostCopy.start(u8).split()

@@ -9,7 +9,8 @@ size and the plan's blend constants on the device.
     package's scatter-free concat form; one form is enough here).  A stack
     of B same-shape images shares its dispatch groups (cross-image tile
     stacking), which grow toward ``max_group_px``; each image recomposes
-    from its own tiles.
+    from its own tiles.  On a device mesh (``parallel/mesh.py``) a group
+    is ``tile_batch`` tiles, cut into even slices over the data devices.
   * ``hybrid_apply``: the whole-image LR trunk on an input padded to
     ``hybrid_dims``, then a tiled upsample tail recomposed the same way.
 """
@@ -21,6 +22,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as TF
 
+from innfer_tpu_torch.parallel.mesh import Mesh, data_parallel
 from innfer_tpu_torch.tiling.plan import (MAX_GROUP_PX, TilePlan, make_auto_plan,
                                           make_cover_plan, make_reference_plan,
                                           make_uniform_plan)
@@ -115,13 +117,23 @@ def recompose_tiles(tiles_sr: torch.Tensor, plan: TilePlan,
 
 
 def _run_groups(fn: Callable, params, tiles: torch.Tensor, chunk: int,
-                output_index: Optional[int] = None) -> torch.Tensor:
+                output_index: Optional[int] = None,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
     """``fn`` over groups of ``chunk`` tiles, concatenated; a multi-output
-    model's forward is cut to its ``output_index``."""
+    model's forward is cut to its ``output_index``.  On a ``mesh`` each
+    group is cut into slices as even as its tiles allow, one per data
+    device, each run there with that device's parameters
+    (``parallel/mesh.data_parallel``); the last group keeps its natural
+    size."""
+    def run(p, t):
+        out = fn(p, t)
+        return out if output_index is None else out[output_index]
+
     outs = []
     for i in range(0, tiles.shape[0], chunk):
-        out = fn(params, tiles[i: i + chunk])
-        outs.append(out if output_index is None else out[output_index])
+        group = tiles[i: i + chunk]
+        outs.append(run(params, group) if mesh is None
+                    else data_parallel(run, group, mesh, params))
     return torch.cat(outs)
 
 
@@ -145,20 +157,25 @@ def tiled_apply(apply_fn: Callable, params, x: torch.Tensor, plan: TilePlan, *,
                 tile_batch: int = 8, output_index: Optional[int] = None,
                 compute_dtype: Optional[torch.dtype] = None,
                 consts: Optional[PlanConsts] = None,
-                max_group_px: int = MAX_GROUP_PX) -> torch.Tensor:
+                max_group_px: int = MAX_GROUP_PX,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Run ``apply_fn`` over all tiles of ``x`` (B, H, W, C) in groups of
     :func:`group_chunk` and recompose each image from its own tiles.
 
     B > 1 is cross-image tile stacking: the tiles of every image share the
     dispatch groups, so a stack of small images takes fewer, fuller
     launches.  The last group runs at its natural size (the JAX package
-    pads it with zero tiles to keep one compiled shape)."""
+    pads it with zero tiles to keep one compiled shape).  On a ``mesh``
+    a group is ``tile_batch`` tiles (a multiple of the data-axis size, as
+    the session rounds it), split over the data devices, as the JAX
+    package's (innfer_tpu/tiling/engine.py:218-240)."""
     n_im = x.shape[0]
     tiles = extract_tiles(pad_image(x, plan), plan)
     if compute_dtype is not None:
         tiles = tiles.to(compute_dtype)
-    chunk = group_chunk(plan, n_im, tile_batch=tile_batch, max_group_px=max_group_px)
-    out = _run_groups(apply_fn, params, tiles, chunk, output_index)
+    chunk = (tile_batch if mesh is not None else
+             group_chunk(plan, n_im, tile_batch=tile_batch, max_group_px=max_group_px))
+    out = _run_groups(apply_fn, params, tiles, chunk, output_index, mesh)
     n = plan.n_tiles
     return torch.cat([recompose_tiles(out[i * n: (i + 1) * n], plan, consts)
                       for i in range(n_im)])
@@ -232,7 +249,9 @@ class TiledRunner:
     ``output_index`` picks one output of a multi-output model (PPON, which
     has no trunk/tail split) on the tile grid.  A stack of images shares
     its tile groups (``tiled_apply``), except in hybrid mode, whose
-    whole-image trunk runs one image at a time.
+    whole-image trunk runs one image at a time.  ``mesh``: the tile groups
+    are split over its data devices (``tiled_apply``); hybrid mode, whose
+    trunk is one whole-image forward, is refused on a mesh.
     """
 
     # whole-trunk input-pixel cap for hybrid mode, the JAX package's
@@ -245,7 +264,7 @@ class TiledRunner:
                  compute_dtype: Optional[torch.dtype] = None,
                  trunk_fn: Callable = None, tail_fn: Callable = None,
                  tail_halo: int = 0, trunk_kernel: bool = False,
-                 output_index: Optional[int] = None):
+                 output_index: Optional[int] = None, mesh: Optional[Mesh] = None):
         if mode not in ("auto", "uniform", "reference", "hybrid"):
             raise ValueError(f"unknown tile mode {mode!r}; use auto, uniform, "
                              "reference or hybrid")
@@ -254,6 +273,10 @@ class TiledRunner:
                 "hybrid mode requires a model with a trunk/tail split "
                 "(ModelDef.apply_trunk/apply_tail); this architecture "
                 "does not expose one")
+        if mode == "hybrid" and mesh is not None:
+            raise NotImplementedError(
+                "hybrid mode is single-chip; use --spatial for "
+                "multi-chip whole-image forwards")
         self.apply_fn = apply_fn
         self.scale = scale
         self.mode = mode
@@ -269,6 +292,7 @@ class TiledRunner:
         self.tail_halo = tail_halo
         self.trunk_kernel = trunk_kernel
         self.output_index = output_index
+        self.mesh = mesh
         self._plans: Dict[tuple, TilePlan] = {}
         self._consts: Dict[tuple, PlanConsts] = {}
         self.last_mode: Optional[str] = None
@@ -283,9 +307,10 @@ class TiledRunner:
         does not.  A trunk of plain ops (SRResNet, ESRGAN with norm layers
         or prelu/swish, backend='torch') keeps the tile grid, and an
         instance-norm trunk keeps the per-tile statistics the JAX package
-        computes.  The port runs on one device, so the JAX package's
-        single-chip condition always holds."""
-        return (on_cuda and self.trunk_kernel and self.trunk_fn is not None
+        computes.  As in the JAX package, a runner on a mesh never
+        upgrades: its tile groups are what it splits over the devices."""
+        return (on_cuda and self.mesh is None and self.trunk_kernel
+                and self.trunk_fn is not None
                 and self.tail_fn is not None and h * w <= self.HYBRID_PX_CAP)
 
     def mode_for(self, h: int, w: int, on_cuda: bool) -> str:
@@ -365,4 +390,4 @@ class TiledRunner:
         return tiled_apply(self.apply_fn, params, x, plan,
                            tile_batch=self.tile_batch, output_index=self.output_index,
                            compute_dtype=self.compute_dtype, consts=consts,
-                           max_group_px=self.max_group_px)
+                           max_group_px=self.max_group_px, mesh=self.mesh)

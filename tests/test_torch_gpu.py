@@ -649,3 +649,137 @@ def test_tail_forms_card_match_cpu(cuda_device, monkeypatch, form, dtype):
     db = math.inf if mse == 0 else 10 * math.log10(peak ** 2 / mse)
     assert outs[0].shape == (2, 120, 176, 3)
     assert db >= (80 if dtype == torch.float32 else 40)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.05)])
+def test_halo_conv_on_a_virtual_card_mesh(cuda_device, dtype, tol):
+    """halo_conv2d over 4 shards of one card against the unsharded conv:
+    the same accumulate route, only the conv's summation order may differ
+    (fp32 true fp32, bf16 one rounding of the fp32 sum)."""
+    from innfer_tpu_torch.parallel.mesh import make_mesh
+    from innfer_tpu_torch.parallel.spatial import halo_conv2d
+
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(1, 68, 96, 64, generator=g).to(cuda_device, dtype)
+    w = (torch.randn(64, 64, 3, 3, generator=g) / 24).to(cuda_device, dtype)
+    b = (torch.randn(64, generator=g) * 0.02).to(cuda_device)
+    mesh = make_mesh(4, devices=[cuda_device] * 4)
+    out = halo_conv2d(x, w, b, mesh=mesh)
+    ref = F.conv2d(x, w, b, padding=1)
+    assert out.shape == ref.shape and out.device == x.device
+    assert (out.float() - ref.float()).abs().max().item() <= tol * max(1.0, ref.abs().max().item())
+
+
+def _small_esrgan(dev, nb):
+    """A seeded 4x ESRGAN (nf=32, gc=16), its params and a 56x72 input on
+    ``dev``."""
+    g = np.random.default_rng(12)
+    nf, gc = 32, 16
+    state = {}
+
+    def conv(key, o, i):
+        std = math.sqrt(3.0 / (9 * i))
+        state[f"{key}.weight"] = g.uniform(-std, std, (o, i, 3, 3)).astype(np.float32)
+        state[f"{key}.bias"] = g.uniform(-0.01, 0.01, o).astype(np.float32)
+
+    conv("model.0", nf, 3)
+    for j in (1, 2, 3):
+        for c in range(1, 6):
+            conv(f"model.1.sub.0.RDB{j}.conv{c}.0", gc if c < 5 else nf, nf + (c - 1) * gc)
+    for k in (f"model.1.sub.{nb}", "model.3", "model.6", "model.8"):
+        conv(k, nf, nf)
+    conv("model.10", 3, nf)
+    model = get_network(get_network_config({"type": "esrgan", "nb": nb, "nf": nf, "gc": gc}, 4))
+    params = convert_state(model, state, device=dev)
+    x = torch.from_numpy(g.random((1, 56, 72, 3), np.float32)).to(dev)
+    return model, params, x
+
+
+@pytest.mark.gpu
+def test_dp_tile_split_on_a_virtual_card_mesh(cuda_device):
+    """A small ESRGAN's tile groups split over 4 data slices of one card:
+    fp32 within 1e-5 of the mesh-free runner, and the kernel launches 3 nb
+    times per slice run."""
+    from innfer_tpu_torch.parallel.mesh import make_mesh, replicate_params
+    from innfer_tpu_torch.tiling.engine import TiledRunner
+
+    nb = 1
+    model, params, x = _small_esrgan(cuda_device, nb)
+    mesh = make_mesh(4, devices=[cuda_device] * 4)
+    kw = dict(mode="uniform", tile=24, overlap=8, tile_batch=8)
+    single = TiledRunner(model.apply, 4, **kw)
+    sharded = TiledRunner(model.apply, 4, mesh=mesh, **kw)
+    with torch.no_grad():
+        ref = single(params, x)
+        before = fused_rdb.launches
+        out = sharded(replicate_params(params, mesh), x)
+        torch.cuda.synchronize()
+    n = single.plan_for(56, 72).n_tiles
+    slices = sum(min(4, min(8, n - i)) for i in range(0, n, 8))
+    assert fused_rdb.launches - before == 3 * nb * slices
+    assert (out - ref).abs().max().item() <= 1e-5
+
+
+@pytest.fixture
+def two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.05)])
+def test_kernels_launch_on_a_card_that_is_not_current(two_cards, dtype, tol):
+    """Both kernels on cuda:0, then on tensors of cuda:1 while cuda:0 is
+    current: the wrapper makes the tensor's card current for the launch,
+    and the conv core sets its shared-memory attribute on each card."""
+    torch.cuda.set_device(two_cards[0])
+    for dev in two_cards:
+        ws, bs, w1 = _rdb(dev, dtype, 64, 32, True, 5)
+        x = torch.randn(2, 19, 70, 64, generator=torch.Generator().manual_seed(6)).to(dev, dtype)
+        out = fused_rdb(x, ws, bs, plus=True, conv1x1_w=w1)
+        ref = rdb_reference(x, ws, bs, plus=True, conv1x1_w=w1)
+        assert torch.cuda.current_device() == 0 and out.device == dev
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+        g = torch.Generator().manual_seed(7)
+        xb = torch.randn(2, 12, 20, 256, generator=g).to(dev, dtype)
+        w = [(torch.randn(256, 256, 3, 3, generator=g) * 0.02).to(dev, dtype) for _ in range(2)]
+        b = [(torch.randn(256, generator=g) * 0.1).to(dev) for _ in range(2)]
+        out = fused_resnet_block(xb, w[0], b[0], w[1], b[1])
+        ref = resnet_block_reference(xb, w[0], b[0], w[1], b[1]).float()
+        d = (out.float() - ref).abs()
+        if dtype == torch.float32:
+            assert d.max().item() < 1e-4
+        else:
+            assert (d <= 2.0 ** -7 * (ref.abs() + (ref - xb.float()).abs() + 1)).all()
+
+
+@pytest.mark.gpu
+def test_dp_and_tp_across_two_cards(two_cards):
+    """The tile groups split over a (cuda:0, cuda:1) data mesh, and the
+    convs tp-sharded over a (1 x 2) mesh of the two cards, each against
+    the mesh-free runner on cuda:0: fp32 within 1e-5, the kernel launched
+    on both cards' slices."""
+    from innfer_tpu_torch.parallel.mesh import make_mesh, replicate_params, tp_shard_params
+    from innfer_tpu_torch.tiling.engine import TiledRunner
+
+    nb = 1
+    model, params, x = _small_esrgan(two_cards[0], nb)
+    kw = dict(mode="uniform", tile=24, overlap=8, tile_batch=8)
+    with torch.no_grad():
+        ref = TiledRunner(model.apply, 4, **kw)(params, x)
+        dp = make_mesh(2, devices=two_cards)
+        runner = TiledRunner(model.apply, 4, mesh=dp, **kw)
+        before = fused_rdb.launches
+        out = runner(replicate_params(params, dp), x)
+        torch.cuda.synchronize()
+        n = runner.plan_for(56, 72).n_tiles
+        slices = sum(min(2, min(8, n - i)) for i in range(0, n, 8))
+        assert fused_rdb.launches - before == 3 * nb * slices
+        assert out.device == x.device and (out - ref).abs().max().item() <= 1e-5
+        tp = make_mesh(1, 2, devices=two_cards)
+        out = TiledRunner(model.apply, 4, mesh=tp, **kw)(
+            tp_shard_params(params, tp, transposed=model.transposed_keys), x)
+        torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-5
