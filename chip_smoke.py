@@ -8,9 +8,13 @@ version.
 Phases, each printing its lines (any failure exits non-zero, and without
 the final result line):
   1. device   the card's name, the device count and nvidia-smi's name and
-              power limit; the image codec the port uses (OpenCV or its
-              stdlib PNG codec) and whether cv2 and rawpy import, with
-              their versions;
+              power limit; the image codec the port uses (its native
+              libpng/libjpeg codec, OpenCV or its stdlib PNG codec) and
+              whether cv2 and rawpy import, with their versions; whether
+              the native host runtime (runtime/native.py) built with g++
+              on this machine, its build time, and otherwise why not; and
+              whether png.h, jpeglib.h and zlib.h are on g++'s include
+              path;
   2. build    both kernel libraries (ops/csrc/rdb.cu, resnet_block.cu,
               each with the shared ops/csrc/conv3x3_tc.cuh) built at once
               with nvcc (sm_90a); for each, ptxas' registers and spills of
@@ -137,7 +141,8 @@ the final result line):
               (another computation: per-tile instance norm; printed);
               the stage's TiledRunner on the 8-image stack (64 tiles in
               groups of 32: 18 launches against 72) against the
-              per-image tiled runs, the same bars; then the CLI with --metrics against the pix2pix
+              per-image tiled runs, the same bars (each line names the
+              image codec, on which the walls depend); then the CLI with --metrics against the pix2pix
               batch=1 outputs (PSNR >= 48.1 dB on every row, the PSNR of
               every value one level off, or inf), --timing, and --profile
               (a Chrome trace file must exist);
@@ -153,7 +158,18 @@ the final result line):
               --remap mod2normal, then the main path's 540x960 PNG through
               InferenceSession from both files in bf16: identical u8
               outputs, 69 fused_rdb launches each;
- 15. stages   after an untimed warm-up pass (the session's first forwards
+ 15. codec    the native host codec against OpenCV on seeded synthetic
+              images: decode of a 1080x1920 PNG and a 1080x1920 JPEG
+              (quality 95), native and read_img(use_native=False), the
+              median of 5 after one warm call each; encode of the main
+              path's 4320x7680 output, native (UP filter, Z_RLE, level 1)
+              and cv2.imwrite, in turns, the median of 5 each; ms, MB and
+              pixel equality: the two must decode the PNG to identical
+              arrays, and each codec's PNG must read back through both to
+              the array written.  It fails where png.h and jpeglib.h are
+              present and the library still did not build; where a header
+              is missing it says so and times OpenCV alone;
+ 16. stages   after an untimed warm-up pass (the session's first forwards
               pack the kernel's weights), the main path's two ESRGAN
               images, then the same two three times over, through
               process with StageTimers,
@@ -163,8 +179,8 @@ the final result line):
               pinned copy's start apart; "fetch" waits for the card), the
               wall, 69 fused_rdb launches per image; then one 4320x7680
               output encoded alone through io.images.save_img, with the
-              codec's name;
- 16. parallel the device mesh on the one card, on virtual meshes that
+              codec's name, and through cv2.imwrite;
+ 17. parallel the device mesh on the one card, on virtual meshes that
               repeat cuda:0 (each halo copy and per-device slice of the
               real path runs; times are the mesh code's overhead on one
               card, not scaling): (a) make_mesh(n_data=2) raises on a
@@ -200,14 +216,14 @@ the final result line):
               within one level) and CycleGAN on its 8 of 512x512 (9
               fused_resnet_block launches per slice of (4,128,128,256);
               bf16 >= 40 dB, fp32 100% within one level);
- 17. multiproc two CLI processes (innfer_tpu_torch.cli run as __main__)
+ 18. multiproc two CLI processes (innfer_tpu_torch.cli run as __main__)
               share cuda:0, joined with --coordinator 127.0.0.1:<free
               port> --num-processes 2 --process-id r over gloo, on 4
               seeded 540x960 PNGs through the main path's checkpoint: each
               writes only its stripe, and their union equals a
               single-process CLI run (bar 100% within one level); each
               process's wall and fused_rdb launches (69 per image);
- 18. result   the kernels line (each kernel also with "tflops", its
+ 19. result   the kernels line (each kernel also with "tflops", its
               achieved rate, and "bound_share", bound_ms / ms), the card
               line and, last,
               {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -362,9 +378,21 @@ def phase_device():
             libs.append(f"{mod} {getattr(m, '__version__', '(no version)')}")
         except ImportError:
             libs.append(f"{mod} does not import")
+    from innfer_tpu_torch.runtime import native
+
+    t0 = time.perf_counter()
+    built = native.available()
+    built_s = time.perf_counter() - t0
+    missing = native.missing_headers()
     print(f"[device] {kind}; device count {count}; nvidia-smi: {smi}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}; image codec "
           f"{iio.codec_name()}; {', '.join(libs)}", flush=True)
+    print(f"[device] native host codec: "
+          + (f"built and loaded in {built_s:.2f} s ({native.version()}, "
+             f"{os.path.relpath(native.library_path(), HERE)})" if built else
+             f"did not build: {native.unavailable_reason()}")
+          + "; on g++'s include path: " + ", ".join(
+              f"{h} {'no' if h in missing else 'yes'}" for h in native.HEADERS), flush=True)
     return kind, count, smi
 
 
@@ -1897,7 +1925,8 @@ def phase_batch(dev, work):
         got_1, wall_1, ev_1, counts_1, _, st_1 = twice(
             sess, in_dir, os.path.join(work, f"{label}_1"), 1)
         share, worst, db = u8_diff(got_b, got_1)
-        print(f"[batch] {label}: {len(got_b)} images, batch={batch} (auto): auto_batch chose "
+        print(f"[batch] {label}, codec {iio.codec_name()}: {len(got_b)} images, batch={batch} "
+              f"(auto): auto_batch chose "
               f"{', '.join(f'{h}x{w} -> {n}' for (h, w), n in targets.items())}, groups run "
               f"{groups}; ms per image (first / second pass) wall {ms(wall_b)}, forward CUDA "
               f"events {ms(ev_b)}; batch=1 wall {ms(wall_1)}, events {ms(ev_1)}; second pass's "
@@ -2278,13 +2307,97 @@ def phase_stages(dev, work, main):
         del sess.forward
         pipeline.HostCopy.start = start
     big = iio.read_img(os.path.join(work, "stages_2_0", f"{list(main['sizes'])[-1]}.png"))
-    path = os.path.join(work, "stages_encode_alone.png")
-    t0 = time.perf_counter()
-    iio.save_img(big, path)
-    dt = time.perf_counter() - t0
+    encoders = [(f"io.images.save_img ({iio.codec_name()})", iio.save_img)]
+    if iio.cv2 is not None:
+        encoders.append((f"cv2.imwrite (opencv {iio.cv2.__version__})",
+                         lambda im, p: iio.cv2.imwrite(p, im)))
+    alone = []
+    for i, (label, enc) in enumerate(encoders):
+        path = os.path.join(work, f"stages_encode_alone_{i}.png")
+        t0 = time.perf_counter()
+        enc(big, path)
+        dt = time.perf_counter() - t0
+        alone.append(f"{label}: {1e3 * dt:.1f} ms, {os.path.getsize(path) / 1e6:.1f} MB")
     print(f"[stages] one {big.shape[0]}x{big.shape[1]} output encoded alone through "
-          f"io.images.save_img ({iio.codec_name()}): {1e3 * dt:.1f} ms, "
-          f"{os.path.getsize(path) / 1e6:.1f} MB", flush=True)
+          + "; through ".join(alone), flush=True)
+
+
+def median_ms(fn, reps: int = 5) -> float:
+    """The median host ms of ``reps`` calls of ``fn`` after one warm call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[reps // 2]
+
+
+def phase_codec(work, main):
+    """The native host codec against OpenCV: decode of a 1080x1920 PNG and
+    JPEG, encode of the main path's 4320x7680 output, on the host.  Where
+    the native library did not build for want of a header, OpenCV alone
+    is timed."""
+    import numpy as np
+
+    from innfer_tpu_torch.io import images as iio
+    from innfer_tpu_torch.runtime import native
+
+    cv2 = iio.cv2
+    if cv2 is None:
+        fail("[codec] OpenCV does not import: nothing to hold the native codec against")
+    ocv = f"opencv {cv2.__version__}"
+    decoders = {ocv: lambda p: iio.read_img(p, use_native=False)}
+    encoders = {ocv: cv2.imwrite}
+    if native.available():
+        decoders = {"native": native.decode, **decoders}
+        encoders = {"native": native.encode_png, **encoders}
+    else:
+        missing = [h for h in native.missing_headers() if h in ("png.h", "jpeglib.h")]
+        if not missing:
+            fail(f"png.h and jpeglib.h are present, yet the native codec did not build: "
+                 f"{native.unavailable_reason()}")
+        print(f"[codec] this host lacks {', '.join(missing)}: the native codec did not build, "
+              f"so OpenCV reads and writes and is timed alone ({native.unavailable_reason()})",
+              flush=True)
+    d = os.path.join(work, "codec")
+    os.makedirs(d)
+    img = synth_image(1080, 1920, seed=300)
+    paths = {"PNG": os.path.join(d, "in.png"), "JPEG": os.path.join(d, "in.jpg")}
+    cv2.imwrite(paths["PNG"], img)
+    cv2.imwrite(paths["JPEG"], img, [cv2.IMWRITE_JPEG_QUALITY, 95])
+    for fmt, path in paths.items():
+        got = {k: dec(path) for k, dec in decoders.items()}
+        ms = {k: median_ms(lambda: dec(path)) for k, dec in decoders.items()}
+        same = len({a.tobytes() for a in got.values()}) == 1
+        print(f"[codec] decode 1080x1920 {fmt} ({os.path.getsize(path) / 1e6:.2f} MB), median "
+              f"of 5: " + "; ".join(f"{k} {t:.2f} ms" for k, t in ms.items())
+              + (f" (native / opencv {ms['native'] / ms[ocv]:.3f}); arrays "
+                 f"{'identical' if same else 'differ'}" if len(ms) > 1 else ""), flush=True)
+        if fmt == "PNG" and not all(np.array_equal(a, img) for a in got.values()):
+            fail("a codec does not read back the PNG written, or the two differ")
+    big = iio.read_img(os.path.join(main["out_dir"], f"{list(main['sizes'])[-1]}.png"))
+    outs = {k: os.path.join(d, f"out_{i}.png") for i, k in enumerate(encoders)}
+    for k, enc in encoders.items():  # one warm call each
+        if not enc(outs[k], big):
+            fail(f"the {k} encoder failed on the {big.shape} output")
+    names = list(encoders)
+    times = {k: [] for k in names}
+    for k in (names + names[::-1]) * 2 + names:  # in turns, 5 each
+        t0 = time.perf_counter()
+        encoders[k](outs[k], big)
+        times[k].append(1e3 * (time.perf_counter() - t0))
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    mb = {k: os.path.getsize(p) / 1e6 for k, p in outs.items()}
+    back = all(np.array_equal(dec(p), big) for p in outs.values() for dec in decoders.values())
+    print(f"[codec] encode {big.shape[0]}x{big.shape[1]} PNG, median of 5 in turns: "
+          + "; ".join(f"{k} {med[k]:.1f} ms, {mb[k]:.2f} MB" for k in names)
+          + (f" (native / opencv: time {med['native'] / med[ocv]:.3f}, size "
+             f"{mb['native'] / mb[ocv]:.3f})" if len(names) > 1 else "")
+          + f"; each file reads back through every decoder to the array written: {back}",
+          flush=True)
+    if not back:
+        fail("a PNG written by one codec does not read back to the array written")
 
 
 def timed_once(torch, fn):
@@ -2699,6 +2812,7 @@ def main() -> int:
             phase_batch(dev, work)
             phase_evsrgan(dev, work, main)
             phase_convert(dev, work, main)
+            phase_codec(work, main)
             phase_stages(dev, work, main)
             phase_parallel(dev, work, main)
             phase_multiproc(dev, work, main)

@@ -2,12 +2,14 @@
 modcrop and linear_resize: the port's counterpart of
 ``innfer_tpu/io/images.py`` (reference utils/utils.py:17-133, 251-275).
 
-Images are numpy HWC BGR uint8/uint16, as OpenCV keeps them.  OpenCV is
-the codec where it can be imported; elsewhere the stdlib PNG codec
-(io/png.py) reads and writes 8-bit PNG, and other formats raise.  The
-resizes need no OpenCV: ``linear_resize`` runs the port's bicubic
-(``nn/resize.interpolate``) on a torch device, and ``merge_imgs`` indexes
-the nearest rows and columns.
+Images are numpy HWC BGR uint8/uint16, as OpenCV keeps them.  As in the
+JAX package, the native codec (runtime/native.py) reads PNG and JPEG and
+writes 8-bit PNG where its library builds; OpenCV takes the rest where it
+can be imported; elsewhere the stdlib PNG codec (io/png.py) reads and
+writes 8-bit PNG, and other formats raise.  The resizes need no OpenCV:
+``linear_resize`` runs the port's bicubic (``nn/resize.interpolate``) on a
+torch device, and ``merge_imgs`` and ``save_img(scale=)`` index the
+nearest rows and columns.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from innfer_tpu_torch.io import png
 from innfer_tpu_torch.nn import resize as R
 from innfer_tpu_torch.ops import colors
+from innfer_tpu_torch.runtime import native
 
 try:
     import cv2
@@ -52,7 +55,11 @@ MAX_VALUES_BY_DTYPE = {
 
 
 def codec_name() -> str:
-    return "opencv" if cv2 is not None else "stdlib png"
+    """What reads and writes images here, as ``native (libpng 1.6.43) +
+    opencv 4.13.0``: the native codec where its library builds, then
+    OpenCV, or the stdlib PNG codec without it."""
+    rest = f"opencv {cv2.__version__}" if cv2 is not None else "stdlib png"
+    return f"native ({native.version()}) + {rest}" if native.available() else rest
 
 
 def scan_dir(path: str, extensions: Sequence[str] = IMG_EXTENSIONS) -> List[str]:
@@ -81,20 +88,29 @@ def get_images_paths(path: str) -> List[str]:
 
 
 def _no_codec(path: str) -> ValueError:
-    return ValueError(f"{path}: OpenCV is not installed and the stdlib codec "
-                      "handles 8-bit PNG only")
+    why = native.unavailable_reason()
+    nat = ("the native codec reads PNG and JPEG and writes 8-bit PNG" if why is None
+           else f"the native codec is unavailable ({why})")
+    return ValueError(f"{path}: no codec for this file: OpenCV is not installed, {nat}, "
+                      "and the stdlib codec handles 8-bit PNG only")
 
 
-def read_img(path: str) -> Optional[np.ndarray]:
+def read_img(path: str, use_native: bool = True) -> Optional[np.ndarray]:
     """Read an image as numpy HWC BGR (uint8/uint16), like the reference;
-    None when OpenCV cannot decode it.  A ``.dng`` goes through rawpy
-    where it is installed, whose ``postprocess()`` array is returned as it
-    is, as the reference and the JAX package return it."""
+    None when no codec can decode it.  A ``.dng`` goes through rawpy where
+    it is installed, whose ``postprocess()`` array is returned as it is,
+    as the reference and the JAX package return it; then the native codec
+    (PNG, JPEG; skipped with ``use_native=False``), OpenCV, and the stdlib
+    PNG codec where OpenCV is missing."""
     if not path:
         raise AssertionError("Empty path provided.")
     if rawpy is not None and path[-3:].lower() == "dng":
         with rawpy.imread(path) as raw:
             return raw.postprocess()
+    if use_native:
+        img = native.decode(path)
+        if img is not None:
+            return img
     if cv2 is not None:
         return cv2.imread(path, cv2.IMREAD_UNCHANGED)
     if not path.lower().endswith(".png"):
@@ -102,8 +118,18 @@ def read_img(path: str) -> Optional[np.ndarray]:
     return png.read(path)
 
 
-def save_img(img: np.ndarray, img_path: str) -> None:
+def save_img(img: np.ndarray, img_path: str, scale: Optional[float] = None) -> None:
+    """Write ``img`` (HWC BGR or HW gray) to ``img_path``, first resized by
+    ``scale`` as ``cv2.resize(fx=fy=scale, INTER_NEAREST)`` resizes it (the
+    JAX package's ``scale=``): 8-bit PNG through the native codec, else
+    OpenCV, else the stdlib PNG codec."""
+    if scale:
+        h, w = img.shape[:2]
+        img = img[R.nearest_table(round(h * scale), h, 1.0 / scale)][
+            :, R.nearest_table(round(w * scale), w, 1.0 / scale)]
     os.makedirs(osp.dirname(osp.abspath(img_path)), exist_ok=True)
+    if img_path.lower().endswith(".png") and native.encode_png(img_path, img):
+        return
     if cv2 is not None:
         if not cv2.imwrite(img_path, img):
             # imwrite reports failure by return value only

@@ -1,10 +1,11 @@
 """A PNG codec on the standard library (zlib + struct) and numpy.
 
-The image I/O's codec where OpenCV cannot be imported (``io/images.py``
-takes OpenCV wherever it imports; ``chip_smoke.py`` prints which codec the
-card's machine uses).  It handles what the pipeline writes and most of
-what it reads: 8-bit grayscale, RGB and RGBA, non-interlaced.  Arrays use
-OpenCV's conventions: HxW for gray, HxWx3 BGR, HxWx4 BGRA, uint8.
+The image I/O's last codec, for PNG where neither the native codec
+(``runtime/native.py``) nor OpenCV serves (``io/images.py`` takes them
+first; ``chip_smoke.py`` prints which codec the card's machine uses).  It
+handles what the pipeline writes and most of what it reads: 8-bit
+grayscale, RGB and RGBA, non-interlaced.  Arrays use OpenCV's
+conventions: HxW for gray, HxWx3 BGR, HxWx4 BGRA, uint8.
 
 Encoding applies the Up filter to every row and deflates with zlib's
 Z_RLE strategy: the JAX package's measured-fast recipe for large SR

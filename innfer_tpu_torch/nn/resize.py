@@ -62,10 +62,12 @@ def _cubic_tables(out_size: int, in_size: int, align_corners: bool):
     return np.clip(taps, 0, in_size - 1), wts
 
 
-def nearest_table(out_size: int, in_size: int) -> np.ndarray:
-    """torch 'nearest': src = floor(dst * in / out), clamped."""
+def nearest_table(out_size: int, in_size: int, ratio: Optional[float] = None) -> np.ndarray:
+    """torch 'nearest': src = floor(dst * ratio), clamped; ``ratio`` is
+    in / out unless given (``cv2.resize`` with ``fx`` takes 1 / fx)."""
     dst = np.arange(out_size, dtype=np.float64)
-    return np.minimum(np.floor(dst * (in_size / out_size)).astype(np.int64), in_size - 1)
+    ratio = in_size / out_size if ratio is None else ratio
+    return np.minimum(np.floor(dst * ratio).astype(np.int64), in_size - 1)
 
 
 def _apply_1d(x: torch.Tensor, idx: np.ndarray, wts: Optional[np.ndarray],

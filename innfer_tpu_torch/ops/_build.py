@@ -7,7 +7,10 @@ never at import, into ``innfer_tpu_torch/build/`` (listed in .gitignore),
 named by a hash of the source, the ``csrc/*.cuh`` headers it includes and
 the flags, so an edit of either rebuilds.
 Each library has its own lock, so two libraries build at once from two
-threads.  The loaded-library cache is the package's only global state.
+threads.  The host runtime's g++ library (``runtime/native.py``) goes
+through the same atomic compile step, ``compile_into``.  The
+loaded-library caches, here and in ``runtime/native.py``, are the
+package's only global state.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -88,6 +91,24 @@ def source_digest(name: str) -> str:
     return h.hexdigest()[:16]
 
 
+def compile_into(cmd: Sequence[str], out: str) -> subprocess.CompletedProcess:
+    """Run the compiler command ``cmd`` with ``-o`` a temporary file beside
+    ``out`` and, where it succeeds, rename that file to ``out``: the rename
+    is atomic, so concurrent builds agree and a build cut short leaves
+    nothing under ``out``'s name.  Returns the finished process."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
+    os.close(fd)
+    try:
+        proc = subprocess.run([*cmd, "-o", tmp], capture_output=True, text=True)
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return proc
+
+
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` (once per process and source) and load it."""
     with _locks[name]:
@@ -97,21 +118,10 @@ def build(name: str) -> Built:
         out = os.path.join(BUILD_DIR, f"lib{name}_{source_digest(name)}.so")
         seconds, report = 0.0, ""
         if not os.path.isfile(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
             t0 = time.perf_counter()
-            try:
-                proc = subprocess.run(
-                    [nvcc_path(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, src],
-                    capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed to build {src}:\n{proc.stdout}{proc.stderr}")
-                os.replace(tmp, out)  # atomic: concurrent builds agree
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
+            proc = compile_into([nvcc_path(), *NVCC_FLAGS, "-I", CSRC, src], out)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build {src}:\n{proc.stdout}{proc.stderr}")
             seconds = time.perf_counter() - t0
             report = proc.stdout + proc.stderr
         built = Built(ctypes.CDLL(out), out, seconds, report)

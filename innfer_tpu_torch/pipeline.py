@@ -67,14 +67,10 @@ from innfer_tpu_torch.parallel.mesh import (Mesh, data_parallel, params_on,
 from innfer_tpu_torch.parallel.multihost import shard_paths
 from innfer_tpu_torch.parallel.spatial_model import (SpatialRunner, spatial_rejection_reason,
                                                      spatial_supported)
+from innfer_tpu_torch.runtime.native import PrefetchLoader
 from innfer_tpu_torch.tiling.engine import TiledRunner
 
 log = logging.getLogger("innfer_tpu_torch")
-
-# decode threads beside the device; the encode pool's size is
-# INNFER_ENCODE_THREADS (default 2, 0 = encode inline on the main loop)
-_DECODE_THREADS = 2
-
 
 def _stage(timers, name: str):
     """``timers.stage(name)`` (observability.StageTimers), or nothing."""
@@ -673,9 +669,13 @@ class InferenceSession:
                 batch: int = 1) -> List[str]:
         """Process a directory of images; returns the written paths.
 
-        Upcoming images decode on a prefetch pool while the device works;
-        finished outputs are fetched and PNG-encoded on a background pool
-        of ``INNFER_ENCODE_THREADS`` threads (default 2; 0 encodes inline).
+        Upcoming images decode ahead while the device works, on the native
+        runtime's threads (``runtime/native.PrefetchLoader``; files it
+        cannot read, such as TIFF, WEBP, BMP or DNG, decode through OpenCV
+        on this thread), or through OpenCV on two Python threads where its
+        library is unavailable; finished outputs are fetched and
+        PNG-encoded on a background pool of ``INNFER_ENCODE_THREADS``
+        threads (default 2; 0 encodes inline).
         ``use_color_fix`` (-cf) transfers the prepared input's color to
         the output on the device; ``comp`` (-comp) writes the prepared
         input and the output side by side.  ``shard_index``/``num_shards``
@@ -690,17 +690,14 @@ class InferenceSession:
         group with :meth:`auto_batch`.  Groups left at the end of the
         directory run at their natural size.  Write errors surface at the
         end-of-run drain; on any error the queued work is cancelled and
-        both pools are shut down."""
+        the encode pool is shut down and the loader closed."""
         paths = shard_paths(iio.get_images_paths(input_dir), shard_index, num_shards)
         written: List[str] = []
         metric_rows: List[dict] = []
         n_enc = int(os.environ.get("INNFER_ENCODE_THREADS", "2"))
-        dec_pool = ThreadPoolExecutor(max_workers=_DECODE_THREADS,
-                                      thread_name_prefix="innfer-decode")
+        loader = PrefetchLoader(paths, fallback=lambda p: iio.read_img(p, use_native=False))
         enc_pool = (ThreadPoolExecutor(max_workers=n_enc, thread_name_prefix="innfer-encode")
                     if n_enc > 0 else None)
-        ahead = 2 * _DECODE_THREADS
-        decodes: Deque = deque()
         encodes: Deque = deque()
 
         def finalize(out: HostCopy, dst: str, name: str, src: str, img_in: np.ndarray):
@@ -753,12 +750,10 @@ class InferenceSession:
         targets = {}   # shape key -> group size
         pending = {}   # shape key -> the images of its open group
         try:
-            decodes.extend(dec_pool.submit(iio.read_img, p) for p in paths[:ahead])
-            for i, src in enumerate(paths):
-                with _stage(timers, "read"):
-                    img = decodes.popleft().result()
-                if i + ahead < len(paths):
-                    decodes.append(dec_pool.submit(iio.read_img, paths[i + ahead]))
+            images = iter(loader)
+            for _ in paths:
+                with _stage(timers, "read"):  # the wait for the next decoded image
+                    _, src, img = next(images)
                 if img is None:
                     print(f"Error reading image {src}, skipping.")
                     continue
@@ -785,11 +780,11 @@ class InferenceSession:
             while encodes:
                 encodes.popleft().result()  # surface write errors
         except BaseException:
-            for f in list(decodes) + list(encodes):
+            for f in encodes:
                 f.cancel()
             raise
         finally:
-            dec_pool.shutdown(wait=True)
+            loader.close()
             if enc_pool is not None:
                 enc_pool.shutdown(wait=True)
         if metric_rows and verbose:

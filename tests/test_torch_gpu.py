@@ -783,3 +783,33 @@ def test_dp_and_tp_across_two_cards(two_cards):
             tp_shard_params(params, tp, transposed=model.transposed_keys), x)
         torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= 1e-5
+
+
+@pytest.fixture
+def native_codec(cuda_device):
+    """The native host codec on the card's machine, built there at first use."""
+    from innfer_tpu_torch.runtime import native
+
+    if not native.available():
+        reason = native.unavailable_reason()
+        print(f"native codec unavailable: {reason}")
+        pytest.skip(f"native codec unavailable: {reason}")
+    return native
+
+
+@pytest.mark.gpu
+def test_native_and_opencv_decode_the_same_png_on_the_cards_host(native_codec, tmp_path):
+    cv2 = pytest.importorskip("cv2")
+    from innfer_tpu_torch.io import images as iio
+
+    rng = np.random.default_rng(9)
+    for shape, dtype in (((61, 83, 3), np.uint8), ((61, 83, 4), np.uint8), ((61, 83), np.uint8),
+                         ((17, 19, 3), np.uint16)):
+        img = rng.integers(0, np.iinfo(dtype).max, shape, dtype=dtype)
+        path = str(tmp_path / "x.png")
+        assert cv2.imwrite(path, img)
+        ours = native_codec.decode(path)
+        assert ours is not None and ours.dtype == dtype
+        np.testing.assert_array_equal(ours, cv2.imread(path, cv2.IMREAD_UNCHANGED))
+        np.testing.assert_array_equal(ours, img)
+    assert iio.codec_name().startswith(f"native ({native_codec.version()}) + ")

@@ -41,7 +41,8 @@ def test_scan_covers_the_port():
                    ("compat", "torchscript.py"), ("nn", "resize.py"), ("models", "unet.py"),
                    ("models", "wbc.py"), ("ops", "filters.py"), ("observability.py",),
                    ("metrics.py",), ("parallel", "multihost.py"), ("parallel", "mesh.py"),
-                   ("parallel", "spatial.py"), ("parallel", "spatial_model.py")):
+                   ("parallel", "spatial.py"), ("parallel", "spatial_model.py"),
+                   ("runtime", "native.py")):
         assert any(f.endswith(os.path.join("innfer_tpu_torch", *module)) for f in files)
 
 

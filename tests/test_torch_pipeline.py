@@ -22,6 +22,7 @@ from innfer_tpu_torch.nn import functional as F
 from innfer_tpu_torch.nn import phase as PH
 from innfer_tpu_torch.ops.rdb import rdb_reference
 from innfer_tpu_torch.pipeline import InferenceSession, _postprocess_u8, np2tensor
+from innfer_tpu_torch.runtime import native
 from tools import synth_params as SP
 
 
@@ -86,6 +87,79 @@ def test_write_error_surfaces(ckpt, in_dir, tmp_path):
                             overlap=8)
     with pytest.raises(OSError):
         sess.process(in_dir, str(blocker / "out"), verbose=False)
+
+
+@pytest.fixture
+def png_jpeg_dir(tmp_path):
+    """One PNG and one JPEG: the native codec decodes both."""
+    d = tmp_path / "mixed"
+    d.mkdir()
+    rng = np.random.default_rng(8)
+    cv2.imwrite(str(d / "a.png"), rng.integers(0, 256, (20, 28, 3), dtype=np.uint8))
+    cv2.imwrite(str(d / "b.jpg"), rng.integers(0, 256, (24, 16, 3), dtype=np.uint8))
+    return str(d)
+
+
+@pytest.mark.parametrize("codec", ["native", "opencv"])
+def test_process_png_and_jpeg_matches_jax_process(ckpt, png_jpeg_dir, tmp_path, monkeypatch,
+                                                  codec):
+    """A directory of a PNG and a JPEG through the port's process (decoded
+    by the native prefetch loader, or with no native library by OpenCV on
+    the loader's Python threads) against the JAX package's process, fp32
+    on the CPU: identical u8 outputs, and with the native codec, whose PNG
+    recipe is the JAX package's, byte-identical files."""
+    kw = dict(tile=16, overlap=8, tile_batch=4)
+    JaxSession(ckpt, compute_dtype=jnp.float32, **kw).process(
+        png_jpeg_dir, str(tmp_path / "jax"), verbose=False)
+    if codec == "opencv":
+        monkeypatch.setattr(native, "get_lib", lambda: None)
+        assert iio.codec_name() == f"opencv {cv2.__version__}"
+    sess = InferenceSession(ckpt, compute_dtype=torch.float32, device="cpu", **kw)
+    written = sess.process(png_jpeg_dir, str(tmp_path / "port"), verbose=False)
+    assert [os.path.basename(p) for p in written] == ["a.png", "b.png"]
+    for path in written:
+        ref = str(tmp_path / "jax" / os.path.basename(path))
+        np.testing.assert_array_equal(cv2.imread(path), cv2.imread(ref))
+        with open(path, "rb") as f, open(ref, "rb") as g:
+            assert (f.read() == g.read()) == (codec == "native")
+
+
+@pytest.mark.parametrize("codec", ["native", "python threads"])
+def test_process_error_closes_the_loader_and_the_pools(ckpt, in_dir, tmp_path, monkeypatch,
+                                                       codec):
+    """A forward that raises on the second image: the error reaches the
+    caller, the loader is closed and no decode or encode thread is left."""
+    import threading
+
+    from innfer_tpu_torch import pipeline
+
+    if codec != "native":
+        monkeypatch.setattr(native, "get_lib", lambda: None)
+    loaders = []
+
+    class Recorded(pipeline.PrefetchLoader):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            loaders.append((self, self._handle is not None, self._pool is not None))
+
+    monkeypatch.setattr(pipeline, "PrefetchLoader", Recorded)
+    sess = InferenceSession(ckpt, compute_dtype=torch.float32, device="cpu", tile=16,
+                            overlap=8)
+    real, calls = sess.run_image, []
+
+    def failing(img, **kw):
+        calls.append(img.shape)
+        if len(calls) == 2:
+            raise RuntimeError("forward failed")
+        return real(img, **kw)
+
+    monkeypatch.setattr(sess, "run_image", failing)
+    with pytest.raises(RuntimeError, match="forward failed"):
+        sess.process(in_dir, str(tmp_path / "out"), verbose=False)
+    ((loader, had_handle, had_pool),) = loaders
+    assert (had_handle, had_pool) == ((True, False) if codec == "native" else (False, True))
+    assert loader._handle is None and loader._pool is None and len(calls) == 2
+    assert not [t.name for t in threading.enumerate() if t.name.startswith("innfer-")]
 
 
 def test_chains_are_refused(ckpt, in_dir, tmp_path):
@@ -169,6 +243,9 @@ def test_stdlib_png_round_trip_and_agrees_with_cv2(shape, tmp_path):
 
 def test_images_use_stdlib_png_without_cv2(monkeypatch, tmp_path):
     monkeypatch.setattr(iio, "cv2", None)
+    # and without the native codec, which would read and write PNG first
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_reason", "switched off by the test")
     assert iio.codec_name() == "stdlib png"
     img = np.random.default_rng(6).integers(0, 256, (6, 9, 3), dtype=np.uint8)
     iio.save_img(img, str(tmp_path / "x.png"))
