@@ -9,12 +9,15 @@ Phases, each printing its lines (any failure exits non-zero, and without
 the final result line):
   1. device   the card's name, the device count and nvidia-smi's name and
               power limit; the image codec the port uses (its native
-              libpng/libjpeg codec, OpenCV or its stdlib PNG codec) and
-              whether cv2 and rawpy import, with their versions; whether
-              the native host runtime (runtime/native.py) built with g++
-              on this machine, its build time, and otherwise why not; and
-              whether png.h, jpeglib.h and zlib.h are on g++'s include
-              path;
+              codec, PNG on zlib and JPEG on libjpeg where built in;
+              OpenCV or its stdlib PNG codec) and whether cv2 and rawpy
+              import, with their versions; whether the native host
+              runtime (runtime/native.py) built with g++ on this machine
+              from the checkout's sources, its version() (zlib's version
+              and the formats), its build time, and otherwise why not;
+              and whether zlib.h and jpeglib.h are on g++'s include path.
+              It fails where g++ and zlib.h are present and the library
+              still does not build or load;
   2. build    both kernel libraries (ops/csrc/rdb.cu, resnet_block.cu,
               each with the shared ops/csrc/conv3x3_tc.cuh) built at once
               with nvcc (sm_90a); for each, ptxas' registers and spills of
@@ -159,21 +162,24 @@ the final result line):
               InferenceSession from both files in bf16: identical u8
               outputs, 69 fused_rdb launches each;
  15. codec    the native host codec against OpenCV on seeded synthetic
-              images: decode of a 1080x1920 PNG and a 1080x1920 JPEG
-              (quality 95), native and read_img(use_native=False), the
-              median of 5 after one warm call each; encode of the main
-              path's 4320x7680 output, native (UP filter, Z_RLE, level 1)
-              and cv2.imwrite, in turns, the median of 5 each; ms, MB and
-              pixel equality: the two must decode the PNG to identical
-              arrays, and each codec's PNG must read back through both to
-              the array written.  It fails where png.h and jpeglib.h are
-              present and the library still did not build; where a header
-              is missing it says so and times OpenCV alone;
+              images, each timing the median of 5 in turns after one warm
+              call each: decode of a 1080x1920 PNG, native and
+              read_img(use_native=False), both arrays equal to the image
+              written; a 1080x1920 JPEG (quality 95), natively only where
+              libjpeg is built in (else a line says JPEG goes through
+              OpenCV on this host); encode of the main path's 4320x7680
+              output, native (UP filter, Z_RLE, level 1) and cv2.imwrite,
+              ms and MB, each file read back through both decoders to the
+              array written.  It fails where g++ and zlib.h are present
+              and the library still did not build; where one is missing
+              it says so and times OpenCV alone;
  16. stages   after an untimed warm-up pass (the session's first forwards
               pack the kernel's weights), the main path's two ESRGAN
               images, then the same two three times over, through
               process with StageTimers,
-              INNFER_ENCODE_THREADS=2 and then 0: each stage's total,
+              INNFER_ENCODE_THREADS=2 and then 0, each with the native
+              codec and then with OpenCV (native.get_lib patched to None
+              for the run), in turns: each stage's total,
               count and mean (read, image, fetch, encode; "image" times
               the host's enqueue, within it the forward's enqueue and the
               pinned copy's start apart; "fetch" waits for the card), the
@@ -241,6 +247,7 @@ import math
 from concurrent.futures import ThreadPoolExecutor
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -388,11 +395,14 @@ def phase_device():
           f"torch {torch.__version__} cuda {torch.version.cuda}; image codec "
           f"{iio.codec_name()}; {', '.join(libs)}", flush=True)
     print(f"[device] native host codec: "
-          + (f"built and loaded in {built_s:.2f} s ({native.version()}, "
+          + (f"built and loaded in {built_s:.2f} s ({native.version()}; "
              f"{os.path.relpath(native.library_path(), HERE)})" if built else
              f"did not build: {native.unavailable_reason()}")
           + "; on g++'s include path: " + ", ".join(
               f"{h} {'no' if h in missing else 'yes'}" for h in native.HEADERS), flush=True)
+    if not built and shutil.which(native.CXX) and not set(native.REQUIRED) & set(missing):
+        fail(f"g++ and {', '.join(native.REQUIRED)} are here, yet the native host codec "
+             f"did not build or load: {native.unavailable_reason()}")
     return kind, count, smi
 
 
@@ -2243,14 +2253,21 @@ def phase_stages(dev, work, main):
     """The main path's ESRGAN images through process with StageTimers, with
     the encode pool and with encodes inline, after a warm-up pass: the two
     images, and the same two three times over (six); inside "image", the
-    forward's enqueue and the pinned copy's start are timed apart.  Then
-    one 4x 1080p output encoded alone."""
+    forward's enqueue and the pinned copy's start are timed apart.  Each
+    run is made with the native host codec and then with OpenCV
+    (``native.get_lib`` patched to None: OpenCV decodes on the loader's
+    Python pool and encodes), in turns.  Then one 4x 1080p output encoded
+    alone."""
     import torch
 
     from innfer_tpu_torch import pipeline
     from innfer_tpu_torch.io import images as iio
     from innfer_tpu_torch.observability import StageTimers
     from innfer_tpu_torch.pipeline import InferenceSession
+    from innfer_tpu_torch.runtime import native
+
+    get_lib = native.get_lib
+    codecs = ["native", "opencv"] if native.available() else ["opencv"]
 
     six = os.path.join(work, "stages_in_six")
     os.makedirs(six)
@@ -2278,11 +2295,14 @@ def phase_stages(dev, work, main):
     try:
         for label, in_dir, n in (("two images", main["in_dir"], main["n_images"]),
                                  ("six images", six, 3 * main["n_images"])):
-            for threads in ("2", "0"):
+            for threads, codec in ((t, c) for t in ("2", "0") for c in codecs):
                 timers = current["timers"] = StageTimers()
-                out_dir = os.path.join(work, f"stages_{n}_{threads}")
+                out_dir = os.path.join(work, f"stages_{n}_{threads}_{codec}")
                 os.environ["INNFER_ENCODE_THREADS"] = threads
+                if codec == "opencv":
+                    native.get_lib = lambda: None
                 try:
+                    name = iio.codec_name()
                     reset_counts()
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
@@ -2291,11 +2311,12 @@ def phase_stages(dev, work, main):
                     wall = time.perf_counter() - t0
                 finally:
                     del os.environ["INNFER_ENCODE_THREADS"]
+                    native.get_lib = get_lib
                 counts = read_counts()
                 rep = timers.report()
                 print(f"[stages] ESRGAN, {label} ({', '.join(main['sizes'])}), bf16 "
-                      f"{sess.stages[0].runner.last_mode}, INNFER_ENCODE_THREADS={threads}: wall "
-                      f"{wall:.3f} s; "
+                      f"{sess.stages[0].runner.last_mode}, INNFER_ENCODE_THREADS={threads}, codec "
+                      f"{name}: wall {wall:.3f} s; "
                       + "; ".join(f"{k} total {v['total_s']:.4f} s, n {v['count']}, mean "
                                   f"{v['mean_ms']:.2f} ms" for k, v in sorted(rep.items()))
                       + f"; fused_rdb launches {counts['fused_rdb']}", flush=True)
@@ -2306,7 +2327,8 @@ def phase_stages(dev, work, main):
     finally:
         del sess.forward
         pipeline.HostCopy.start = start
-    big = iio.read_img(os.path.join(work, "stages_2_0", f"{list(main['sizes'])[-1]}.png"))
+    big = iio.read_img(os.path.join(work, f"stages_2_0_{codecs[0]}",
+                                    f"{list(main['sizes'])[-1]}.png"))
     encoders = [(f"io.images.save_img ({iio.codec_name()})", iio.save_img)]
     if iio.cv2 is not None:
         encoders.append((f"cv2.imwrite (opencv {iio.cv2.__version__})",
@@ -2322,22 +2344,11 @@ def phase_stages(dev, work, main):
           + "; through ".join(alone), flush=True)
 
 
-def median_ms(fn, reps: int = 5) -> float:
-    """The median host ms of ``reps`` calls of ``fn`` after one warm call."""
-    fn()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        times.append(1e3 * (time.perf_counter() - t0))
-    return sorted(times)[reps // 2]
-
-
 def phase_codec(work, main):
-    """The native host codec against OpenCV: decode of a 1080x1920 PNG and
-    JPEG, encode of the main path's 4320x7680 output, on the host.  Where
-    the native library did not build for want of a header, OpenCV alone
-    is timed."""
+    """The native host codec against OpenCV on the card's host: decode of a
+    1080x1920 PNG and encode of the main path's 4320x7680 output, median of
+    5 in turns, then a 1080x1920 JPEG (natively where libjpeg is built in).
+    Where g++ or zlib.h is missing, OpenCV alone is timed."""
     import numpy as np
 
     from innfer_tpu_torch.io import images as iio
@@ -2353,41 +2364,63 @@ def phase_codec(work, main):
         decoders = {"native": native.decode, **decoders}
         encoders = {"native": native.encode_png, **encoders}
     else:
-        missing = [h for h in native.missing_headers() if h in ("png.h", "jpeglib.h")]
-        if not missing:
-            fail(f"png.h and jpeglib.h are present, yet the native codec did not build: "
+        missing = [h for h in native.missing_headers() if h in native.REQUIRED]
+        if shutil.which(native.CXX) and not missing:
+            fail(f"zlib.h is present, yet the native codec did not build: "
                  f"{native.unavailable_reason()}")
-        print(f"[codec] this host lacks {', '.join(missing)}: the native codec did not build, "
-              f"so OpenCV reads and writes and is timed alone ({native.unavailable_reason()})",
-              flush=True)
+        print(f"[codec] this host lacks {', '.join(missing) or native.CXX}: the native codec did "
+              f"not build, so OpenCV reads and writes and is timed alone "
+              f"({native.unavailable_reason()})", flush=True)
+    names = list(decoders)
     d = os.path.join(work, "codec")
     os.makedirs(d)
     img = synth_image(1080, 1920, seed=300)
     paths = {"PNG": os.path.join(d, "in.png"), "JPEG": os.path.join(d, "in.jpg")}
     cv2.imwrite(paths["PNG"], img)
     cv2.imwrite(paths["JPEG"], img, [cv2.IMWRITE_JPEG_QUALITY, 95])
-    for fmt, path in paths.items():
-        got = {k: dec(path) for k, dec in decoders.items()}
-        ms = {k: median_ms(lambda: dec(path)) for k, dec in decoders.items()}
-        same = len({a.tobytes() for a in got.values()}) == 1
-        print(f"[codec] decode 1080x1920 {fmt} ({os.path.getsize(path) / 1e6:.2f} MB), median "
-              f"of 5: " + "; ".join(f"{k} {t:.2f} ms" for k, t in ms.items())
-              + (f" (native / opencv {ms['native'] / ms[ocv]:.3f}); arrays "
-                 f"{'identical' if same else 'differ'}" if len(ms) > 1 else ""), flush=True)
-        if fmt == "PNG" and not all(np.array_equal(a, img) for a in got.values()):
-            fail("a codec does not read back the PNG written, or the two differ")
+
+    def in_turns(fns: dict) -> dict:
+        """The median host ms of 5 calls of each of ``fns``, taken in turns
+        (a b b a a b b a a b) after one warm call each."""
+        for fn in fns.values():
+            fn()
+        keys, times = list(fns), {k: [] for k in fns}
+        for k in (keys + keys[::-1]) * 2 + keys:
+            t0 = time.perf_counter()
+            fns[k]()
+            times[k].append(1e3 * (time.perf_counter() - t0))
+        return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+    got = {k: dec(paths["PNG"]) for k, dec in decoders.items()}
+    ms = in_turns({k: (lambda dec=dec: dec(paths["PNG"])) for k, dec in decoders.items()})
+    same = all(a is not None and np.array_equal(a, img) for a in got.values())
+    print(f"[codec] decode 1080x1920 PNG ({os.path.getsize(paths['PNG']) / 1e6:.2f} MB, written "
+          f"by OpenCV), median of 5 in turns: " + "; ".join(f"{k} {t:.2f} ms" for k, t in ms.items())
+          + (f" (native / opencv {ms['native'] / ms[ocv]:.3f})" if len(ms) > 1 else "")
+          + f"; arrays identical to each other and to the image written: {same}", flush=True)
+    if not same:
+        fail("a codec does not read back the PNG written, or the two differ")
+
+    jpeg = {k: dec for k, dec in decoders.items() if k != "native" or native.has_jpeg()}
+    got = {k: dec(paths["JPEG"]) for k, dec in jpeg.items()}
+    ms = in_turns({k: (lambda dec=dec: dec(paths["JPEG"])) for k, dec in jpeg.items()})
+    if len(jpeg) < len(decoders):
+        print("[codec] JPEG through OpenCV: no libjpeg on this host", flush=True)
+    print(f"[codec] decode 1080x1920 JPEG ({os.path.getsize(paths['JPEG']) / 1e6:.2f} MB, "
+          f"quality 95), median of 5 in turns: "
+          + "; ".join(f"{k} {t:.2f} ms" for k, t in ms.items())
+          + (f" (native / opencv {ms['native'] / ms[ocv]:.3f}); arrays "
+             f"{'identical' if len({a.tobytes() for a in got.values()}) == 1 else 'differ'}"
+             if len(ms) > 1 else ""), flush=True)
+    if any(a is None or a.shape != img.shape for a in got.values()):
+        fail(f"a codec does not read the JPEG: {[None if a is None else a.shape for a in got.values()]}")
+
     big = iio.read_img(os.path.join(main["out_dir"], f"{list(main['sizes'])[-1]}.png"))
     outs = {k: os.path.join(d, f"out_{i}.png") for i, k in enumerate(encoders)}
-    for k, enc in encoders.items():  # one warm call each
+    for k, enc in encoders.items():  # the warm call, checked
         if not enc(outs[k], big):
             fail(f"the {k} encoder failed on the {big.shape} output")
-    names = list(encoders)
-    times = {k: [] for k in names}
-    for k in (names + names[::-1]) * 2 + names:  # in turns, 5 each
-        t0 = time.perf_counter()
-        encoders[k](outs[k], big)
-        times[k].append(1e3 * (time.perf_counter() - t0))
-    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    med = in_turns({k: (lambda k=k, enc=enc: enc(outs[k], big)) for k, enc in encoders.items()})
     mb = {k: os.path.getsize(p) / 1e6 for k, p in outs.items()}
     back = all(np.array_equal(dec(p), big) for p in outs.values() for dec in decoders.values())
     print(f"[codec] encode {big.shape[0]}x{big.shape[1]} PNG, median of 5 in turns: "

@@ -3,8 +3,9 @@ modcrop and linear_resize: the port's counterpart of
 ``innfer_tpu/io/images.py`` (reference utils/utils.py:17-133, 251-275).
 
 Images are numpy HWC BGR uint8/uint16, as OpenCV keeps them.  As in the
-JAX package, the native codec (runtime/native.py) reads PNG and JPEG and
-writes 8-bit PNG where its library builds; OpenCV takes the rest where it
+JAX package, the native codec (runtime/native.py) reads PNG (and JPEG
+where it was built with libjpeg) and writes 8-bit PNG where its library
+builds; OpenCV takes the rest where it
 can be imported; elsewhere the stdlib PNG codec (io/png.py) reads and
 writes 8-bit PNG, and other formats raise.  The resizes need no OpenCV:
 ``linear_resize`` runs the port's bicubic (``nn/resize.interpolate``) on a
@@ -55,9 +56,9 @@ MAX_VALUES_BY_DTYPE = {
 
 
 def codec_name() -> str:
-    """What reads and writes images here, as ``native (libpng 1.6.43) +
-    opencv 4.13.0``: the native codec where its library builds, then
-    OpenCV, or the stdlib PNG codec without it."""
+    """What reads and writes images here, as ``native (zlib 1.3; PNG) +
+    opencv 4.13.0``: the native codec where its library builds (with the
+    formats it reads), then OpenCV, or the stdlib PNG codec without it."""
     rest = f"opencv {cv2.__version__}" if cv2 is not None else "stdlib png"
     return f"native ({native.version()}) + {rest}" if native.available() else rest
 
@@ -89,7 +90,8 @@ def get_images_paths(path: str) -> List[str]:
 
 def _no_codec(path: str) -> ValueError:
     why = native.unavailable_reason()
-    nat = ("the native codec reads PNG and JPEG and writes 8-bit PNG" if why is None
+    reads = "PNG and JPEG" if why is None and native.has_jpeg() else "PNG"
+    nat = (f"the native codec reads {reads} and writes 8-bit PNG" if why is None
            else f"the native codec is unavailable ({why})")
     return ValueError(f"{path}: no codec for this file: OpenCV is not installed, {nat}, "
                       "and the stdlib codec handles 8-bit PNG only")
@@ -100,7 +102,8 @@ def read_img(path: str, use_native: bool = True) -> Optional[np.ndarray]:
     None when no codec can decode it.  A ``.dng`` goes through rawpy where
     it is installed, whose ``postprocess()`` array is returned as it is,
     as the reference and the JAX package return it; then the native codec
-    (PNG, JPEG; skipped with ``use_native=False``), OpenCV, and the stdlib
+    (PNG, and JPEG where libjpeg is built in; skipped with
+    ``use_native=False``), OpenCV, and the stdlib
     PNG codec where OpenCV is missing."""
     if not path:
         raise AssertionError("Empty path provided.")

@@ -7,11 +7,13 @@ The library is built with g++ at first use, never at import, into
 ``innfer_tpu_torch/build/`` (listed in .gitignore), named by a hash of the
 sources and the flags and written through a temporary file and a rename
 (``ops/_build.compile_into``): an edited source builds a library of its
-own, and a build cut short leaves nothing that could be loaded.  Where it
-cannot build (no g++, no libpng/libjpeg/zlib headers), ``decode`` returns
-None and ``encode_png`` False, and the callers take OpenCV: the JAX
-package's semantics for its host codec.  ``available`` and
-``unavailable_reason`` say which codec ran, and why.
+own, and a build cut short leaves nothing that could be loaded.  PNG needs
+zlib alone (``zlib.h``, ``-lz``); JPEG is compiled in, with ``-ljpeg``,
+only where g++ finds ``jpeglib.h``, and the flags are part of the hash.
+Where it cannot build (no g++, no zlib headers), ``decode`` returns None
+and ``encode_png`` False, and the callers take OpenCV: the JAX package's
+semantics for its host codec.  ``available`` and ``unavailable_reason``
+say which codec ran, and why; ``version`` names zlib and the formats.
 """
 from __future__ import annotations
 
@@ -33,8 +35,9 @@ SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 SOURCES = ("imgcodec.cpp", "loader.cpp")
 CXX = "g++"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
-LINK = ("-lpng", "-ljpeg", "-lz")
-HEADERS = ("png.h", "jpeglib.h", "zlib.h")
+REQUIRED = ("zlib.h",)          # the build needs these; PNG is done on zlib
+HEADERS = REQUIRED + ("jpeglib.h",)
+JPEG_FLAGS = ("-DINNFER_WITH_JPEG", "-ljpeg")  # only where jpeglib.h is found
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -45,17 +48,25 @@ _u16p = ctypes.POINTER(ctypes.c_uint16)
 _ip = ctypes.POINTER(ctypes.c_int)
 
 
-def source_digest() -> str:
+def build_flags() -> Tuple[str, ...]:
+    """The compile and link flags of this host: zlib always, JPEG where g++
+    finds ``jpeglib.h``."""
+    jpeg = JPEG_FLAGS if "jpeglib.h" not in missing_headers() else ()
+    return (*CXX_FLAGS, *jpeg, "-lz")
+
+
+def source_digest(flags: Optional[Sequence[str]] = None) -> str:
     """Hash of the sources and the flags: the library's name."""
-    h = hashlib.sha256(" ".join((CXX, *CXX_FLAGS, *LINK)).encode())
+    flags = build_flags() if flags is None else flags
+    h = hashlib.sha256(" ".join((CXX, *flags)).encode())
     for name in SOURCES:
         with open(os.path.join(SRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
 
 
-def library_path() -> str:
-    return os.path.join(_build.BUILD_DIR, f"libinnfer_runtime_{source_digest()}.so")
+def library_path(flags: Optional[Sequence[str]] = None) -> str:
+    return os.path.join(_build.BUILD_DIR, f"libinnfer_runtime_{source_digest(flags)}.so")
 
 
 def missing_headers() -> List[str]:
@@ -86,24 +97,26 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.loader_next.restype = ctypes.c_int
     lib.loader_destroy.argtypes = [ctypes.c_void_p]
     lib.loader_destroy.restype = None
-    # libpng's own entry point, found through the library's dependencies
-    lib.png_access_version_number.argtypes = []
-    lib.png_access_version_number.restype = ctypes.c_uint32
+    lib.codec_has_jpeg.argtypes = []
+    lib.codec_has_jpeg.restype = ctypes.c_int
+    lib.codec_zlib_version.argtypes = []
+    lib.codec_zlib_version.restype = ctypes.c_char_p
 
 
 def _load() -> Tuple[Optional[ctypes.CDLL], Optional[str]]:
     """Build (where needed) and load the library: (lib, None) or (None, why)."""
     if shutil.which(CXX) is None:
         return None, f"{CXX} is not on PATH"
+    flags = build_flags()
     try:
-        out = library_path()
+        out = library_path(flags)
     except OSError as e:
         return None, f"cannot read the sources: {e}"
     if not os.path.isfile(out):
         proc = _build.compile_into(
-            [CXX, *CXX_FLAGS, *(os.path.join(SRC, s) for s in SOURCES), *LINK], out)
+            [CXX, *(os.path.join(SRC, s) for s in SOURCES), *flags], out)
         if proc.returncode != 0:
-            missing = missing_headers()
+            missing = [h for h in missing_headers() if h in REQUIRED]
             why = f"missing {', '.join(missing)}; " if missing else ""
             return None, f"{why}{CXX} failed: {proc.stderr.strip()[-800:]}"
     try:
@@ -133,10 +146,16 @@ def unavailable_reason() -> Optional[str]:
     return None if get_lib() is not None else _reason
 
 
+def has_jpeg() -> bool:
+    """Whether the loaded library was built with libjpeg."""
+    return bool(get_lib().codec_has_jpeg())
+
+
 def version() -> str:
-    """The libpng the loaded library runs on, as ``libpng 1.6.43``."""
-    v = get_lib().png_access_version_number()
-    return f"libpng {v // 10000}.{v // 100 % 100}.{v % 100}"
+    """The zlib the loaded library runs on and the formats it reads, as
+    ``zlib 1.3; PNG, JPEG`` (``zlib 1.3; PNG`` without libjpeg)."""
+    z = get_lib().codec_zlib_version().decode()
+    return f"zlib {z}; PNG" + (", JPEG" if has_jpeg() else "")
 
 
 def _take(lib, data_p, h: int, w: int, c: int, ctype) -> np.ndarray:
@@ -186,13 +205,19 @@ def encode_png(path: str, img: np.ndarray, compression_level: int = 1) -> bool:
                           compression_level) == 0
 
 
+def _jpeg(path: str) -> bool:
+    return path.lower().endswith((".jpg", ".jpeg"))
+
+
 class PrefetchLoader:
     """Iterate ``(index, path, image)`` over ``paths`` in their order,
     decoding up to ``capacity`` images ahead of the consumer on ``threads``
-    threads: the native library's, or where it is unavailable a pool that
-    runs ``fallback``.  A file the native codec cannot read (TIFF, WEBP,
-    BMP, DNG, a corrupt file) decodes through ``fallback`` on the
-    consumer's thread, as in the JAX package; without a fallback its image
+    threads: the native library's, or a Python pool where the library is
+    unavailable or was built without libjpeg and the list holds a JPEG.
+    On the library's threads a file it cannot read (TIFF, WEBP, BMP, DNG,
+    a corrupt file) decodes through ``fallback`` on the consumer's thread,
+    as in the JAX package; the pool reads each file natively where it can
+    and through ``fallback`` where not.  Without a fallback such an image
     is None.  ``close`` stops the threads and frees what they decoded
     ahead."""
 
@@ -205,7 +230,11 @@ class PrefetchLoader:
         self._handle = None
         self._pool = None
         self._ahead: deque = deque()
-        if self._lib is not None and self.paths:
+        # the library's threads decode a JPEG only where libjpeg is built
+        # in: a JPEG on them would otherwise decode on the consumer's thread
+        reads_all = self._lib is not None and (
+            self._lib.codec_has_jpeg() or not any(map(_jpeg, self.paths)))
+        if reads_all and self.paths:
             self._names = (ctypes.c_char_p * len(self.paths))(
                 *[os.fsencode(p) for p in self.paths])  # alive while the threads read it
             self._handle = self._lib.loader_create(self._names, len(self.paths),
@@ -216,6 +245,11 @@ class PrefetchLoader:
     def _read(self, path: str) -> Optional[np.ndarray]:
         return self.fallback(path) if self.fallback is not None else None
 
+    def _decode(self, path: str) -> Optional[np.ndarray]:
+        """Natively where the library reads the file, else ``fallback``."""
+        img = decode(path) if self._lib is not None else None
+        return img if img is not None else self._read(path)
+
     def __iter__(self) -> Iterator[Tuple[int, str, Optional[np.ndarray]]]:
         if self._handle is not None:
             yield from self._native()
@@ -223,7 +257,7 @@ class PrefetchLoader:
             yield from self._pooled()
         else:
             for i, p in enumerate(self.paths):
-                yield i, p, self._read(p)
+                yield i, p, self._decode(p)
 
     def _native(self):
         lib = self._lib
@@ -242,12 +276,13 @@ class PrefetchLoader:
 
     def _pooled(self):
         n = len(self.paths)
-        self._ahead.extend(self._pool.submit(self.fallback, p)
+        self._ahead.extend(self._pool.submit(self._decode, p)
                            for p in self.paths[:self.capacity])
         for i, p in enumerate(self.paths):
             img = self._ahead.popleft().result()
             if i + self.capacity < n:
-                self._ahead.append(self._pool.submit(self.fallback, self.paths[i + self.capacity]))
+                self._ahead.append(self._pool.submit(self._decode,
+                                                     self.paths[i + self.capacity]))
             yield i, p, img
 
     def close(self) -> None:

@@ -787,12 +787,18 @@ def test_dp_and_tp_across_two_cards(two_cards):
 
 @pytest.fixture
 def native_codec(cuda_device):
-    """The native host codec on the card's machine, built there at first use."""
+    """The native host codec on the card's machine, built there at first use
+    from the repo's sources on g++ and zlib: a failure where both are
+    present, a skip only where one is missing."""
+    import shutil
+
     from innfer_tpu_torch.runtime import native
 
     if not native.available():
         reason = native.unavailable_reason()
         print(f"native codec unavailable: {reason}")
+        if shutil.which(native.CXX) and not set(native.REQUIRED) & set(native.missing_headers()):
+            pytest.fail(f"g++ and zlib.h are here, yet the native codec is unavailable: {reason}")
         pytest.skip(f"native codec unavailable: {reason}")
     return native
 
@@ -812,4 +818,7 @@ def test_native_and_opencv_decode_the_same_png_on_the_cards_host(native_codec, t
         assert ours is not None and ours.dtype == dtype
         np.testing.assert_array_equal(ours, cv2.imread(path, cv2.IMREAD_UNCHANGED))
         np.testing.assert_array_equal(ours, img)
+        if dtype == np.uint8:  # and what the native encoder writes, OpenCV reads
+            assert native_codec.encode_png(path, img)
+            np.testing.assert_array_equal(cv2.imread(path, cv2.IMREAD_UNCHANGED), img)
     assert iio.codec_name().startswith(f"native ({native_codec.version()}) + ")

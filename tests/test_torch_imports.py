@@ -57,3 +57,21 @@ def test_metrics_import_no_opencv():
 def test_no_jax_or_jax_package_import(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_native_codec_sources_include_no_libpng():
+    """The host codec is built on zlib alone: no source under runtime/src
+    includes png.h, and libjpeg's header is included only behind the build
+    flag that the library adds where g++ finds it."""
+    import re
+
+    src = os.path.join(ROOT, "innfer_tpu_torch", "runtime", "src")
+    includes = {}
+    for name in sorted(os.listdir(src)):
+        text = open(os.path.join(src, name)).read()
+        includes[name] = re.findall(r"^\s*#\s*include\s*[<\"]([^>\"]+)[>\"]", text, re.M)
+        assert not any(i == "png.h" or i.startswith("libpng") for i in includes[name]), name
+    assert "zlib.h" in includes["imgcodec.cpp"]
+    codec = open(os.path.join(src, "imgcodec.cpp")).read()
+    guarded = codec.split("#ifdef INNFER_WITH_JPEG", 1)[1].split("#endif", 1)[0]
+    assert "jpeglib.h" in guarded and codec.count("jpeglib.h") == guarded.count("jpeglib.h")

@@ -124,13 +124,23 @@ def test_process_png_and_jpeg_matches_jax_process(ckpt, png_jpeg_dir, tmp_path, 
             assert (f.read() == g.read()) == (codec == "native")
 
 
-@pytest.mark.parametrize("codec", ["native", "python threads"])
-def test_process_error_closes_the_loader_and_the_pools(ckpt, in_dir, tmp_path, monkeypatch,
-                                                       codec):
-    """A forward that raises on the second image: the error reaches the
-    caller, the loader is closed and no decode or encode thread is left."""
+# the thread-name prefixes of the port's two pools: the loader's decode
+# pool (runtime/native.py) and the session's encode pool (pipeline.py).  A
+# JAX test in the same worker leaves the JAX package's process-wide
+# ``innfer-fetch`` pool behind, which is none of the port's business.
+PORT_POOLS = ("innfer-decode", "innfer-encode")
+
+
+def _port_pool_threads():
     import threading
 
+    return [t.name for t in threading.enumerate() if t.name.startswith(PORT_POOLS)]
+
+
+def _process_fails_on_the_second_image(ckpt, in_dir, tmp_path, monkeypatch, codec):
+    """A forward that raises on the second image: the error reaches the
+    caller, the loader is closed and none of the port's decode or encode
+    threads is left."""
     from innfer_tpu_torch import pipeline
 
     if codec != "native":
@@ -159,7 +169,37 @@ def test_process_error_closes_the_loader_and_the_pools(ckpt, in_dir, tmp_path, m
     ((loader, had_handle, had_pool),) = loaders
     assert (had_handle, had_pool) == ((True, False) if codec == "native" else (False, True))
     assert loader._handle is None and loader._pool is None and len(calls) == 2
-    assert not [t.name for t in threading.enumerate() if t.name.startswith("innfer-")]
+    assert not _port_pool_threads()
+
+
+@pytest.mark.parametrize("codec", ["native", "python threads"])
+def test_process_error_closes_the_loader_and_the_pools(ckpt, in_dir, tmp_path, monkeypatch,
+                                                       codec):
+    _process_fails_on_the_second_image(ckpt, in_dir, tmp_path, monkeypatch, codec)
+
+
+@pytest.mark.parametrize("codec", ["native", "python threads"])
+def test_process_error_check_ignores_a_jax_fetch_pool(ckpt, in_dir, tmp_path, monkeypatch,
+                                                      codec):
+    """The same failure with a thread named as the JAX package's fetch pool
+    alive in the process (what tests/test_pipeline.py leaves in a worker it
+    shared with this file): the check counts the port's pools only, and
+    still sees a port thread that outlives the call."""
+    import threading
+
+    stop = threading.Event()
+    jax_like = threading.Thread(target=stop.wait, name="innfer-fetch_0", daemon=True)
+    jax_like.start()
+    try:
+        _process_fails_on_the_second_image(ckpt, in_dir, tmp_path, monkeypatch, codec)
+        leak = threading.Thread(target=stop.wait, name="innfer-encode_0", daemon=True)
+        leak.start()
+        assert _port_pool_threads() == ["innfer-encode_0"]
+    finally:
+        stop.set()
+        jax_like.join()
+    leak.join()
+    assert not _port_pool_threads()
 
 
 def test_chains_are_refused(ckpt, in_dir, tmp_path):
