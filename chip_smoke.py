@@ -229,12 +229,28 @@ the final result line):
               writes only its stripe, and their union equals a
               single-process CLI run (bar 100% within one level); each
               process's wall and fused_rdb launches (69 per image);
- 19. result   the kernels line (each kernel also with "tflops", its
+ 19. determinism  C4: a pix2pix unet_256 (ngf=64) on a batch of 8 seeded
+              256x256 images and a CycleGAN resnet_9blocks (ngf=64) on a
+              512x512 one, [i2i]'s and [cyclegan]'s checkpoints, bf16 and
+              fp32: two passes on one session and one on a second session
+              (their upsampling runs F.conv_transpose2d, a cuDNN
+              backward-data conv); each pair's share of equal u8 values
+              and largest difference; any difference fails;
+ 20. bench    bench_torch.py's ten configs (bench.py's) at their defaults
+              with --iters 3 (INNFER_E2E_IMGS=2: two 1080x1920 PNGs per
+              _e2e pass), through bench_torch.main: each prints its
+              JSON line (output MP/s at the median, set-up, launches per
+              step, fidelity against its bar, which exits 1 on a miss);
+              launches per step 69 fused_rdb for esrgan, 138 for chain, 69
+              per image for esrgan_e2e, fused_resnet_block in nines for
+              cyclegan, none elsewhere;
+ 21. result   the kernels line (each kernel also with "tflops", its
               achieved rate, and "bound_share", bound_ms / ms), the card
               line and, last,
               {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Each path (main, chain, cyclegan, zoo, ts, i2i, batch, evsrgan, convert,
-stages, and each of parallel's and multiproc's) runs with
+stages, each of parallel's and multiproc's, and each bench config's timed
+window) runs with
 every kernel's launch count set to 0 just before it and read just after;
 launches made to compare a kernel with its plain version are not counted.
 """
@@ -2821,6 +2837,82 @@ def phase_multiproc(dev, work, main, size=(540, 960), cli_args=()):
         fail(f"[multiproc]: launches {[r[0] for r in reports]}, share {share}")
 
 
+def phase_determinism(dev, work):
+    """C4: pix2pix and CycleGAN, whose upsampling runs F.conv_transpose2d
+    (a cuDNN backward-data conv), give the same u8 outputs in two passes
+    on one session and in a pass on a second session, bf16 and fp32.
+    Reads [i2i]'s and [cyclegan]'s checkpoints from the work directory."""
+    import numpy as np
+    import torch
+
+    from innfer_tpu_torch.pipeline import InferenceSession
+
+    cases = (("pix2pix unet_256 ngf=64, 8 x 256x256", "p2p_synth_unet256.pth", "unet_256",
+              [synth_image(256, 256, seed=170 + i) for i in range(8)]),
+             ("CycleGAN resnet_9blocks ngf=64, 512x512", "cyclegan9_synth.pth",
+              "resnet_9blocks", [synth_image(512, 512, seed=180)]))
+    differ = []
+    for label, name, arch, imgs in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            runs = []
+            for passes in (2, 1):
+                sess = InferenceSession(os.path.join(work, name), arch=arch, compute_dtype=dt,
+                                        tile_mode="auto")
+                runs += [np.stack(sess.run_batch(imgs)) for _ in range(passes)]
+                del sess
+            pairs = []
+            for (i, j), what in (((0, 1), "pass 1 vs pass 2 of one session"),
+                                 ((0, 2), "session 1 vs session 2"),
+                                 ((1, 2), "pass 2 vs session 2")):
+                d = np.abs(runs[i].astype(np.int32) - runs[j].astype(np.int32))
+                pairs.append(f"{what}: {100 * float((d == 0).mean()):.4f}% equal, "
+                             f"max diff {int(d.max())}")
+                if d.any():
+                    differ.append(f"{label} {str(dt)[6:]} {what}")
+            print(f"[determinism] {label}, {str(dt)[6:]}, cudnn benchmark="
+                  f"{torch.backends.cudnn.benchmark} deterministic="
+                  f"{torch.backends.cudnn.deterministic}: " + "; ".join(pairs), flush=True)
+    if differ:
+        fail("C4: outputs differ between passes: " + "; ".join(differ))
+
+
+E2E_IMGS = 2   # images per _e2e pass in [bench]: 8 took 103 s of the phase on the H100
+
+
+def phase_bench():
+    """bench_torch.py's ten configs at their defaults with --iters 3 (the
+    _e2e configs on E2E_IMGS images), each line printed by the bench.
+    bench_torch.main exits 1 where an output misses its fidelity bar; here
+    each kernel's launches per step must be those of its path and 0 on the
+    kernel-free configs."""
+    import bench_torch
+
+    want = {"esrgan": {"fused_rdb": 69}, "chain": {"fused_rdb": 138},
+            "esrgan_e2e": {"fused_rdb": 69 * E2E_IMGS}}
+    t0 = time.perf_counter()
+    for model in bench_torch.CONFIGS:
+        t1 = time.perf_counter()
+        os.environ["INNFER_E2E_IMGS"] = str(E2E_IMGS)
+        try:
+            line = bench_torch.main(["--model", model, "--iters", "3"])
+        finally:
+            del os.environ["INNFER_E2E_IMGS"]
+        got = {k: v for k, v in line["launches"].items() if v}
+        if model == "cyclegan":
+            ok = set(got) == {"fused_resnet_block"} and got["fused_resnet_block"] % 9 == 0
+        else:
+            ok = got == want.get(model, {})
+        print(f"[bench] {model}: {line['value']:.3f} MP/s, median {line['median_ms']:.2f} ms "
+              f"of {line['n']}, set-up {line['setup_s']:.2f} s, fidelity "
+              f"{line['fidelity_db']} dB (bar {line['fidelity_bar_db']}), launches per step "
+              f"{got or 0}; {time.perf_counter() - t1:.1f} s", flush=True)
+        if not ok:
+            fail(f"[bench] {model}: launches per step {got}, expected {want.get(model, {})}"
+                 + (" (fused_resnet_block, 9 per tile group)" if model == "cyclegan" else ""))
+    print(f"[bench] {len(bench_torch.CONFIGS)} configs in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "innfer_tpu_torch")):
         fail("innfer_tpu_torch/ is not beside chip_smoke.py: run it from a checkout")
@@ -2849,6 +2941,8 @@ def main() -> int:
             phase_stages(dev, work, main)
             phase_parallel(dev, work, main)
             phase_multiproc(dev, work, main)
+            phase_determinism(dev, work)
+        phase_bench()
     rdb_src = "innfer_tpu_torch/ops/csrc/rdb.cu"
     kernels = [
         {"name": "fused_rdb", "route": "cuda", "source": rdb_src,

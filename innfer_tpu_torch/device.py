@@ -24,3 +24,19 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def set_cudnn_deterministic() -> None:
+    """cuDNN picks deterministic algorithms only, as the reference asks
+    (run.py:337).  Without it, cuDNN may pick an algorithm whose sums run
+    in another order on each call: on the H100, pix2pix's u8 outputs (bf16
+    and fp32) and CycleGAN's (fp32) came out one level apart between two
+    passes over the same images.
+
+    The reference's other flag, ``benchmark`` (run.py:336), stays off for
+    the process: on the H100 its autotuning made a fresh session's first
+    fp32 SRResNet image at 1080p take 39.2 s instead of about 1 s, and it
+    picks other algorithms for tp shards' convs than for whole ones.  Only
+    the transposed convs, whose deterministic heuristic pick is slow, are
+    autotuned (``nn/functional.conv_transpose2d``)."""
+    torch.backends.cudnn.deterministic = True

@@ -170,15 +170,36 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     return _conv(TF.conv3d, x, w, b, stride=stride, padding=padding, dilation=dilation)
 
 
+@contextlib.contextmanager
+def _autotuned_deterministic():
+    """cuDNN's ``benchmark`` and ``deterministic`` flags on for the block,
+    restored after it."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = True, True
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+
+
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
                      b: Optional[torch.Tensor] = None, *, stride: int = 2,
                      padding: int = 1, output_padding: int = 0) -> torch.Tensor:
     """Transposed convolution, NHWC -> NHWC, matching torch.nn.ConvTranspose2d.
     ``w`` keeps the checkpoint's (I, O, kh, kw) layout, so no flip is needed:
     out = (in - 1) * stride - 2 * padding + kh + output_padding.  Bias and
-    rounding as :func:`conv2d`."""
-    return _conv_any(TF.conv_transpose2d, x, w, b, stride=stride, padding=padding,
-                     output_padding=output_padding)
+    rounding as :func:`conv2d`.
+
+    cuDNN runs it as a backward-data conv and picks among its deterministic
+    algorithms by timing them, once per shape in the process, as the
+    reference's flags ask (run.py:336-337).  On the H100, with no flag
+    pix2pix unet_256's outputs differed between two passes, and with
+    ``deterministic`` alone the heuristic's pick took 238 ms at 1280x2048
+    bf16 against 10 ms autotuned (PERF.md, PR 11)."""
+    with _autotuned_deterministic():
+        return _conv_any(TF.conv_transpose2d, x, w, b, stride=stride, padding=padding,
+                         output_padding=output_padding)
 
 
 _MATMUL = torch.backends.cuda.matmul

@@ -54,7 +54,7 @@ import torch
 
 from innfer_tpu_torch.compat.torchscript import (FitTileRunner, is_torchscript,
                                                  load_torchscript)
-from innfer_tpu_torch.device import DeviceLike, resolve_device
+from innfer_tpu_torch.device import DeviceLike, resolve_device, set_cudnn_deterministic
 from innfer_tpu_torch.io import images as iio
 from innfer_tpu_torch.loader import load_model
 from innfer_tpu_torch.metrics import psnr_np, ssim_np
@@ -364,7 +364,10 @@ class InferenceSession:
     multiple of the data-axis size; params are tp-sharded where the model
     axis is above 1, else replicated; ``spatial=True`` runs each supported
     stage through a :class:`SpatialRunner` and refuses the rest, TorchScript
-    and a model axis above 1 with the reason."""
+    and a model axis above 1 with the reason.
+
+    Building a session sets cuDNN's ``deterministic`` flag for the process,
+    as the reference does (``device.set_cudnn_deterministic``)."""
 
     def __init__(
         self,
@@ -386,6 +389,7 @@ class InferenceSession:
         spatial: bool = False,
     ):
         self.device = resolve_device(device)
+        set_cudnn_deterministic()
         if spatial and mesh is None:
             raise ValueError("spatial=True needs a device mesh (make_mesh, CLI --dp N)")
         if spatial and mesh.shape.get("model", 1) > 1:

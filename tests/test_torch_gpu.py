@@ -822,3 +822,41 @@ def test_native_and_opencv_decode_the_same_png_on_the_cards_host(native_codec, t
             assert native_codec.encode_png(path, img)
             np.testing.assert_array_equal(cv2.imread(path, cv2.IMREAD_UNCHANGED), img)
     assert iio.codec_name().startswith(f"native ({native_codec.version()}) + ")
+
+
+@pytest.mark.gpu
+def test_bench_esrgan_goes_through_its_kernel_and_meets_its_bars(cuda_device, capsys):
+    """bench_torch.py's headline config at 540x960: 69 fused_rdb launches per
+    step (hybrid), bf16 against fp32 >= 30 dB and against the plain
+    versions of the kernel in bf16 >= 40 dB."""
+    import bench_torch
+
+    line = bench_torch.main(["--model", "esrgan", "--height", "540", "--width", "960",
+                             "--iters", "2"])
+    assert line["device"]["platform"] == "gpu" and "W" in line["device"]["power_limit"]
+    assert line["launches"]["fused_rdb"] == 69
+    assert line["fidelity_ok"] and line["fidelity_db"] >= 30 and line["kernel_vs_plain_db"] >= 40
+    assert line["n"] == 2 and line["value"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pix2pix_passes_are_bit_identical(cuda_device, tmp_path, monkeypatch, dtype):
+    """C4: the pix2pix UNet's transposed convs run as cuDNN backward-data
+    convs; with cuDNN free to pick a non-deterministic algorithm the H100
+    gave fp32 u8 outputs one level apart between two passes.  The session
+    must ask cuDNN for deterministic algorithms (reference run.py:337),
+    whatever the flags were."""
+    from innfer_tpu_torch.pipeline import InferenceSession
+    from innfer_tpu_torch.tools import synth_params as SP
+
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    ckpt = str(tmp_path / "p2p_unet256.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in SP.unet_state(ngf=64).items()}, ckpt)
+    sess = InferenceSession(ckpt, arch="unet_256", compute_dtype=dtype)
+    rng = np.random.default_rng(3)
+    imgs = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(8)]
+    first = np.stack(sess.run_batch(imgs))
+    for _ in range(3):
+        np.testing.assert_array_equal(np.stack(sess.run_batch(imgs)), first)
