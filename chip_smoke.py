@@ -18,20 +18,26 @@ the final result line):
               and whether zlib.h and jpeglib.h are on g++'s include path.
               It fails where g++ and zlib.h are present and the library
               still does not build or load;
-  2. build    both kernel libraries (ops/csrc/rdb.cu, resnet_block.cu,
-              each with the shared ops/csrc/conv3x3_tc.cuh) built at once
-              with nvcc (sm_90a); for each, ptxas' registers and spills of
-              every tensor-core conv (conv_wgmma, one per N tile) with its
-              dynamic shared memory, and the count of HGMMA (wgmma)
-              instructions in the library's SASS (cuobjdump), which must be
-              above 0;
+  2. build    both kernel libraries (ops/csrc/rdb.cu with
+              ops/csrc/conv3x3_tma.cuh, resnet_block.cu; both with the
+              shared ops/csrc/conv3x3_tc.cuh) built at once with nvcc
+              (sm_90a); for each, ptxas' registers and spills of every
+              tensor-core conv instantiation (rdb's conv_tma, resnet_block's
+              conv_wgmma, one per N tile) with its dynamic shared memory,
+              and the counts of HGMMA (wgmma) and UTMALDG (TMA tensor load)
+              instructions in the library's SASS (cuobjdump): HGMMA must be
+              above 0 in both, UTMALDG in rdb's, and no conv_tma may spill;
   3. kernel   fused_rdb against rdb_reference at nf=64, gc=32 on
               (1, 64, 1920, 64) strips, bf16 and fp32, with and without the
               ESRGAN+ plus; then timed with CUDA events at the main-path
               shape (1, 1088, 1920, 64) bf16 beside its bound, the plain
               version and the cuDNN conv chain (the library yardstick,
               which the port never calls), with the achieved TFLOP/s and
-              the share of the bound;
+              the share of the bound; then each of its five conv
+              launches' device ms (torch.profiler, three calls) beside the
+              conv's floor (scripts/time_fused_rdb.py's): the larger of its
+              operations at 989 TFLOP/s and the workspace bytes it reads
+              and writes at 3.35 TB/s;
   4. main     a seeded synthetic 4x ESRGAN (nb=23, nf=64, gc=32, upconv)
               saved with torch.save, and seeded 540x960 and 1080x1920
               PNGs, run through InferenceSession.process in bf16 with
@@ -455,6 +461,24 @@ def sass_count(path: str, opcode: str) -> int:
     return len(re.findall(rf"\b{opcode}\b", sass))
 
 
+def conv_lines(lib, kernels: dict) -> tuple:
+    """Per tensor-core conv instantiation of a library's ptxas report
+    (conv_tma for rdb, conv_wgmma for resnet_block): its registers, spill
+    bytes and dynamic shared memory; and the other kernels."""
+    lines, spills, others = [], 0, []
+    for func, k in kernels.items():
+        m = re.search(r"conv_(tma|wgmma)ILi(\d+)E", func)
+        if not m:
+            others.append(k)
+            continue
+        kind, nt = m.group(1), int(m.group(2))
+        smem = (lib.innfer_conv_tma_smem_bytes if kind == "tma" else lib.innfer_conv_tc_smem_bytes)(nt)
+        lines.append((nt, f"conv_{kind} N={nt}: {k['regs']} regs, {k['spill']} B spilled, "
+                          f"{smem} B dynamic smem"))
+        spills += k["spill"] if kind == "tma" else 0
+    return [t for _, t in sorted(lines)], spills, others
+
+
 def phase_build():
     from innfer_tpu_torch.ops import _build
 
@@ -464,26 +488,23 @@ def phase_build():
     for name, b in built.items():
         where = os.path.relpath(b.path, HERE)
         hgmma = sass_count(b.path, "HGMMA")
+        utmaldg = sass_count(b.path, "UTMALDG")
+        counts = f"HGMMA in SASS: {hgmma}, UTMALDG: {utmaldg}"
         if not b.ptxas:
-            print(f"[build] {where} was already built; HGMMA in SASS: {hgmma}", flush=True)
+            print(f"[build] {where} was already built; {counts}", flush=True)
         else:
-            lib = _build.library(name)
-            kernels = ptxas_kernels(b.ptxas)
-            tc = []
-            for func, k in sorted(kernels.items()):
-                m = re.search(r"conv_wgmmaILi(\d+)E", func)
-                if m:
-                    nt = int(m.group(1))
-                    tc.append((nt, f"N={nt}: {k['regs']} regs, {k['spill']} B spilled, "
-                                   f"{lib.innfer_conv_tc_smem_bytes(nt)} B dynamic smem"))
-            others = [k for f, k in kernels.items() if "conv_wgmma" not in f]
-            print(f"[build] {where}: nvcc {b.seconds:.1f} s; wgmma convs: "
-                  f"{'; '.join(t for _, t in sorted(tc))}; other kernels: {len(others)}, "
+            lines, spills, others = conv_lines(_build.library(name), ptxas_kernels(b.ptxas))
+            print(f"[build] {where}: nvcc {b.seconds:.1f} s; tensor-core convs: "
+                  f"{'; '.join(lines)}; other kernels: {len(others)}, "
                   f"registers {min(k['regs'] for k in others)}-"
                   f"{max(k['regs'] for k in others)}, spills "
-                  f"{sum(k['spill'] for k in others)} B; HGMMA in SASS: {hgmma}", flush=True)
+                  f"{sum(k['spill'] for k in others)} B; {counts}", flush=True)
+            if spills:
+                fail(f"{where}: the TMA convs spill {spills} B of registers")
         if hgmma == 0:
             fail(f"{where} holds no HGMMA instruction: the bf16 conv is not on the tensor cores")
+        if name == "rdb" and utmaldg == 0:
+            fail(f"{where} holds no UTMALDG instruction: the RDB convs do not load through TMA")
     print(f"[build] {len(LIBS)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -548,6 +569,22 @@ def phase_kernel(dev):
           f"plain {plain_ms:.3f} ms, cuDNN chain {library_ms:.3f} ms, "
           f"max_abs {err:.3g}, {row['tflops']:.1f} TFLOP/s achieved, "
           f"{100 * row['bound_share']:.1f}% of the bound", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    from scripts.time_fused_rdb import conv_floors_ms, launches_in_order
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fused_rdb(x, ws, bs, packed=packed)
+        torch.cuda.synchronize()
+    convs = [t for name, t in launches_in_order(prof) if "conv" in name]
+    if len(convs) != 15:
+        fail(f"the profile of 3 fused_rdb calls holds {len(convs)} conv launches, not 15")
+    per = [sum(convs[c::5]) / 3 for c in range(5)]
+    floors = conv_floors_ms(shape[0] * shape[1] * shape[2], NF, GC)
+    print("[kernel] per conv, device ms (floor ms, share): " + ", ".join(
+        f"conv{c + 1} {m:.3f} ({f:.3f}, {100 * f / m:.0f}%)" for c, (m, f) in enumerate(zip(per, floors)))
+        + f"; sum {sum(per):.3f} ({sum(floors):.3f})", flush=True)
     return row
 
 

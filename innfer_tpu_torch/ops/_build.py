@@ -151,8 +151,10 @@ def library(name: str) -> ctypes.CDLL:
             for fn, (argtypes, restype) in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
-            lib.innfer_conv_tc_smem_bytes.argtypes = [_i]
-            lib.innfer_conv_tc_smem_bytes.restype = _i
+            for fn in ("innfer_conv_tc_smem_bytes", "innfer_conv_tma_smem_bytes"):
+                if hasattr(lib, fn):  # the TMA conv is rdb.cu's alone
+                    getattr(lib, fn).argtypes = [_i]
+                    getattr(lib, fn).restype = _i
             lib.innfer_cuda_error_string.argtypes = [_i]
             lib.innfer_cuda_error_string.restype = ctypes.c_char_p
             lib._innfer_declared = True

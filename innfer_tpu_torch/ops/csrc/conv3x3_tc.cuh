@@ -43,12 +43,12 @@
 // with NT = n_tile(cout) output channels per N tile, zeros past cin and
 // cout.
 //
-// Left on the table: a producer warp with TMA and mbarriers instead of
-// every thread issuing cp.async (warp specialisation), a persistent grid,
-// multicasting the weights over a cluster (each block streams the whole
-// weight set from L2: 651 MB per N = 256 conv on the CycleGAN slab), a
-// 20-byte register spill of the N = 32 conv, stores staged
-// through shared memory, and keeping an RDB's x1..x4 on chip.
+// rdb.cu's bf16 convs run on conv3x3_tma.cuh instead (zero padding by TMA,
+// warp specialisation, a persistent grid); conv_wgmma is resnet_block.cu's.
+// Left on the table here: those three, multicasting the weights over a
+// cluster (each block streams the whole weight set from L2: 651 MB per
+// N = 256 conv on the CycleGAN slab), a 20-byte register spill of the
+// N = 32 conv, and stores staged through shared memory.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -19,18 +19,24 @@
 // is five conv launches on a preallocated NHWC workspace [x | x1 | x2 | x3
 // | x4] (nf + 4*gc channels): conv c reads channels [0, nf + (c-1)*gc) and
 // writes its outputs into its own channel slice, so no concat exists; the
-// x channels are read from x where it lies (no copy into the workspace).  The
-// conv is conv3x3_tc.cuh's: in bf16 the wgmma implicit GEMM with N = cout
-// (gc = 32 for convs 1-4, nf = 64 for conv5: one block covers all output
-// channels, so each halo is staged once), K = 9 x cin in 16-channel
-// chunks through a cp.async ring, zero padding from cp.async's zero fill;
-// in fp32 (the parity path) the FFMA direct conv.  Run on bf16 too, that
-// FFMA conv reached 23.7 TFLOP/s on an H100 (2.4% of the bound) on FP32
-// pipes, staged synchronously in fp32, and re-read conv5's halo per
-// 32-channel group; those three are what the tensor-core design removes.  The five
+// x channels are read from x where it lies (no copy into the workspace).
+// In bf16 each conv is conv3x3_tma.cuh's: a persistent grid of one block
+// per SM, a TMA producer warp filling an mbarrier ring with halo boxes
+// (whose out-of-bounds zero fill is the padding) and weight chunks, and two
+// wgmma consumer warpgroups with N = cout (gc = 32 for convs 1-4 on
+// 16-row tiles, nf = 64 for conv5 on 8-row tiles: one block covers all
+// output channels, so each halo is staged once).  In fp32 (the parity
+// path) the conv is conv3x3_tc.cuh's FFMA direct conv.  The five
 // epilogues (RdbEpi) are applied to the accumulator plus the fp32 bias;
-// the ESRGAN+ 1x1 term (off the main path) stays an FFMA sum there,
-// rounded on its own as before.
+// the ESRGAN+ 1x1 term (off the main path) is an FFMA sum of its own
+// small kernel, rounded on its own into the x2 slice before conv2, whose
+// epilogue adds it there as conv4's adds x2.
+//
+// The five convs' floors at the main-path shape (the larger of the
+// operations at 989 TFLOP/s and the bytes of the workspace channels each
+// reads and writes at 3.35 TB/s): 0.120, 0.160, 0.200, 0.239 and 0.467 ms.
+// Keeping x1..x4 on chip could lower their 1.19 ms sum to the 1.01 ms of
+// the operations alone.
 //
 // Chain mode (innfer_rdb_forward_ws) replaces the TPU kernels
 // rdb.py::fused_rdb_padded and, driven by the host loop in ops/rdb.py,
@@ -42,13 +48,13 @@
 // with s = 0.2 rounded to the activation dtype, each step rounded as the
 // activation dtype's arithmetic does (rdb.py:292 and :304).  The bound per
 // call is fused_rdb's plus one read of res.  Both modes run the same conv
-// code in the same order, so the chain equals the per-RDB path bit for bit.
+// code in the same order, and each output pixel's sums are taken in the
+// same order whichever block computes it, so the chain equals the per-RDB
+// path bit for bit, and a stack of images equals its images one by one.
 //
-// Left on the table: conv3x3_tc.cuh's list, and here keeping x1..x4 on
-// chip across the five convs (each conv reads its cin channels of the
-// workspace from device memory: 2.7 GB per call at 1080p, 0.8 ms at 3.35
-// TB/s) and one CUDA graph or persistent launch over the trunk.
-#include "conv3x3_tc.cuh"
+// Left on the table: conv3x3_tma.cuh's list, keeping x1..x4 on chip
+// across the five convs, and one persistent launch over the trunk.
+#include "conv3x3_tma.cuh"
 
 namespace {
 
@@ -60,60 +66,174 @@ constexpr float SLOPE = 0.2f;
 
 enum Epilogue {
   EPI_ACT = 0,        // bias + LReLU -> workspace slice
-  EPI_ACT_1X1 = 1,    // conv 2 of plus: ... + cast(conv1x1(x))
-  EPI_ACT_X2 = 2,     // conv 4 of plus: ... + x2
+  EPI_ACT_ADD = 1,    // conv 2 and 4 of plus: ... + what the x2 slice holds
   EPI_RESIDUAL = 3,   // conv 5: (acc + b5) * 0.2 + x -> output tensor
   EPI_RRDB = 4,       // conv 5 of an RRDB's last RDB: ... then * s + res
 };
 
-// v = conv sum + fp32 bias for channels co, co + 1 of pixel pix.
+// ESRGAN+ only: cast(sum over ci of x[pix, ci] * w1[ci][co]) into channel co
+// of the x2 slice, before conv2, whose epilogue adds it there (EPI_ACT_ADD)
+// and writes x2 over it.  One thread per output value.
+template <typename T>
+__global__ void conv1x1_into(const T* __restrict__ x, int xs, const T* __restrict__ w1, T* ws,
+                             int ctot, int off, int nf, int gc, size_t npix) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= npix * gc) return;
+  const size_t pix = i / gc;
+  const int co = (int)(i % gc);
+  float p = 0.f;
+  for (int ci = 0; ci < nf; ++ci)
+    p += to_f<T>(x[pix * xs + ci]) * to_f<T>(w1[(size_t)ci * gc + co]);
+  ws[pix * ctot + off + co] = from_f<T>(p);
+}
+
+template <typename T> struct Pair;  // two adjacent channels in one load
+template <> struct Pair<float> {
+  float2 v;
+  __device__ float lo() const { return v.x; }
+  __device__ float hi() const { return v.y; }
+};
+template <> struct Pair<__nv_bfloat16> {
+  __nv_bfloat162 v;
+  __device__ float lo() const { return __low2float(v); }
+  __device__ float hi() const { return __high2float(v); }
+};
+template <typename T>
+__device__ __forceinline__ Pair<T> load2(const T* p) {  // p is 2-element aligned
+  return {*reinterpret_cast<const decltype(Pair<T>::v)*>(p)};
+}
+template <typename T> __device__ __forceinline__ Pair<T> pack2(float a, float b);
+template <> __device__ __forceinline__ Pair<float> pack2<float>(float a, float b) {
+  return {make_float2(a, b)};
+}
+template <> __device__ __forceinline__ Pair<__nv_bfloat16> pack2<__nv_bfloat16>(float a, float b) {
+  return {__floats2bfloat162_rn(a, b)};
+}
+
+// The epilogue of channels co, co + 1 (co even) of pixel pix, in two steps
+// so that a caller can issue a row's reads before its stores: load() reads
+// what the kind adds besides the conv sum (x for conv5, res for EPI_RRDB,
+// the x2 slice for EPI_ACT_ADD), store() applies the kind to v = conv sum +
+// fp32 bias.
 template <typename T>
 struct RdbEpi {
   static constexpr bool kStats = false;
   const T* x;        // the RDB input (B, H, W, nf), pixel stride xs
   const T* ws;       // workspace (B, H, W, ctot)
   T* dst;            // workspace or output tensor
-  const T* w1;       // plus: conv1x1 weights [nf][gc]
   const T* res;      // EPI_RRDB: the RRDB input, stride ctot (may alias dst)
   float res_scale;   // EPI_RRDB: 0.2 rounded to the activation dtype
-  int kind, xs, ctot, nf, gc, dst_stride, dst_off, x2_off;
+  int kind, xs, ctot, nf, gc, dst_stride, dst_off, x2_off, cout_;
 
-  // ESRGAN+ only: sum over ci of x[pix, ci] * w1[ci][co].  Not inlined:
-  // the epilogue is unrolled over every accumulator pair, and inlining this
-  // loop into each copy multiplied the kernels' compile time.
-  __device__ __noinline__ float conv1x1(size_t pix, int co) const {
-    float p = 0.f;
-    for (int ci = 0; ci < nf; ++ci)
-      p += to_f<T>(x[pix * xs + ci]) * to_f<T>(w1[(size_t)ci * gc + co]);
+  struct Pre {
+    Pair<T> a, r;    // x or x2; res
+  };
+
+  __device__ __forceinline__ Pre load(size_t pix, int co) const {
+    Pre p{};
+    if (kind >= EPI_RESIDUAL) {
+      p.a = load2(x + pix * xs + co);
+      // res and dst may be the same memory: each element is read before it
+      // is written, by the thread that writes it (no __restrict__ here)
+      if (kind == EPI_RRDB) p.r = load2(res + pix * ctot + co);
+    } else if (kind == EPI_ACT_ADD) {
+      p.a = load2(ws + pix * ctot + x2_off + co);
+    }
     return p;
   }
 
-  __device__ __forceinline__ void operator()(size_t pix, int co, float v0, float v1) const {
-    const float v[2] = {v0, v1};
+  // the two outputs of channels co, co + 1, rounded to T
+  __device__ __forceinline__ Pair<T> value(int co, float v0, float v1, const Pre& p) const {
+    const float v[2] = {v0, v1}, a[2] = {p.a.lo(), p.a.hi()}, r[2] = {p.r.lo(), p.r.hi()};
     float o[2];
-    T* d = dst + pix * dst_stride + dst_off + co;
-    if (kind >= EPI_RESIDUAL) {
-      // res and dst may be the same memory: each element is read before it
-      // is written, by the thread that writes it (no __restrict__ here)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float r = v[e] * SLOPE + to_f<T>(x[pix * xs + co + e]);
-        if (kind == EPI_RRDB)
-          r = __fadd_rn(rnd<T>(__fmul_rn(rnd<T>(r), res_scale)),
-                        to_f<T>(res[pix * ctot + co + e]));
-        o[e] = r;
-      }
-      conv3x3::store2(d, o[0], o[1]);
-      return;
-    }
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      float a = rnd<T>(v[e] >= 0.f ? v[e] : v[e] * SLOPE);
-      if (kind == EPI_ACT_1X1) a += rnd<T>(conv1x1(pix, co + e));
-      if (kind == EPI_ACT_X2) a += to_f<T>(ws[pix * ctot + x2_off + co + e]);
-      o[e] = a;
+      if (kind >= EPI_RESIDUAL) {
+        o[e] = v[e] * SLOPE + a[e];
+        if (kind == EPI_RRDB) o[e] = __fadd_rn(rnd<T>(__fmul_rn(rnd<T>(o[e]), res_scale)), r[e]);
+      } else {
+        o[e] = rnd<T>(v[e] >= 0.f ? v[e] : v[e] * SLOPE);
+        if (kind == EPI_ACT_ADD) o[e] += a[e];
+      }
     }
-    conv3x3::store2(d, o[0], o[1]);
+    return pack2<T>(o[0], o[1]);
+  }
+
+  __device__ __forceinline__ void store(size_t pix, int co, float v0, float v1,
+                                        const Pre& p) const {
+    *reinterpret_cast<decltype(Pair<T>::v)*>(dst + pix * dst_stride + dst_off + co) =
+        value(co, v0, v1, p).v;
+  }
+
+  __device__ __forceinline__ void operator()(size_t pix, int co, float v0, float v1) const {
+    store(pix, co, v0, v1, load(pix, co));
+  }
+
+  // The bf16 TMA conv's epilogue: K consecutive channels c0.. of pixel pix,
+  // moved in units of U = min(8, K) channels (16 bytes), each only where it
+  // lies below cout (a multiple of 8), so that a warp's stores cover whole
+  // 32-byte sectors.
+  template <int K> struct Run {
+    static constexpr int U = K < 8 ? K : 8;
+    Pre p[K / 2];
+  };
+
+  template <int K>
+  __device__ __forceinline__ Run<K> load(size_t pix, int c0) const {
+    constexpr int U = Run<K>::U;
+    Run<K> r{};
+#pragma unroll
+    for (int u = 0; u < K / U; ++u) {
+      if (c0 + U * u >= cout_) break;
+      if (kind != EPI_ACT) {
+        const T* a = kind == EPI_ACT_ADD ? ws + pix * ctot + x2_off : x + pix * xs;
+        copy_run<U>(r.p + U / 2 * u, &Pre::a, a + c0 + U * u);
+        if (kind == EPI_RRDB) copy_run<U>(r.p + U / 2 * u, &Pre::r, res + pix * ctot + c0 + U * u);
+      }
+    }
+    return r;
+  }
+
+  // v of channel c0 + c is acc[4 (c / 2) + 2 h + c % 2] + bias[c]: the
+  // accumulator row of conv3x3_tma.cuh, h its pixel half
+  template <int K>
+  __device__ __forceinline__ void store(size_t pix, int c0, const float (&acc)[2 * K], int h,
+                                        const Run<K>& r, const float (&bias)[K]) const {
+    constexpr int U = Run<K>::U;
+    T* d = dst + pix * dst_stride + dst_off + c0;
+#pragma unroll
+    for (int u = 0; u < K / U; ++u) {
+      if (c0 + U * u >= cout_) break;
+      uint32_t out[U / 2];
+#pragma unroll
+      for (int i = 0; i < U / 2; ++i) {
+        const int k = U / 2 * u + i;
+        const Pair<T> o = value(c0 + 2 * k, acc[4 * k + 2 * h] + bias[2 * k],
+                                acc[4 * k + 2 * h + 1] + bias[2 * k + 1], r.p[k]);
+        out[i] = *reinterpret_cast<const uint32_t*>(&o.v);
+      }
+      if constexpr (U == 8)
+        *reinterpret_cast<uint4*>(d + U * u) = make_uint4(out[0], out[1], out[2], out[3]);
+      else
+#pragma unroll
+        for (int i = 0; i < U / 2; ++i) reinterpret_cast<uint32_t*>(d + U * u)[i] = out[i];
+    }
+  }
+
+ private:
+  // U channels (a multiple of 2) at p into the member `f` of U / 2 Pres
+  template <int U>
+  __device__ __forceinline__ static void copy_run(Pre* dst_p, Pair<T> Pre::*f, const T* p) {
+    static_assert(sizeof(T) == 2, "the TMA conv is bf16");
+    if constexpr (U == 8) {
+      const uint4 q = *reinterpret_cast<const uint4*>(p);
+      const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) (dst_p[i].*f).v = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < U / 2; ++i) dst_p[i].*f = load2(p + 2 * i);
+    }
   }
 };
 
@@ -144,10 +264,9 @@ cudaError_t run_rdb(const T* x, int xs, T* ws, T* dst, int dst_stride, const T* 
     epi.x = x;
     epi.xs = xs;
     epi.ws = ws;
-    epi.w1 = w1;
     epi.res = res;
     epi.res_scale = res_scale;
-    epi.ctot = ctot; epi.nf = nf; epi.gc = gc;
+    epi.ctot = ctot; epi.nf = nf; epi.gc = gc; epi.cout_ = g.cout;
     epi.x2_off = nf + gc;
     if (c < 5) {
       epi.dst = ws; epi.dst_stride = ctot; epi.dst_off = nf + (c - 1) * gc;
@@ -155,11 +274,16 @@ cudaError_t run_rdb(const T* x, int xs, T* ws, T* dst, int dst_stride, const T* 
       epi.dst = dst; epi.dst_stride = dst_stride; epi.dst_off = 0;
     }
     epi.kind = c == 5 ? (res != nullptr ? EPI_RRDB : EPI_RESIDUAL)
-               : (plus && c == 2) ? EPI_ACT_1X1
-               : (plus && c == 4) ? EPI_ACT_X2 : EPI_ACT;
+               : (plus && (c == 2 || c == 4)) ? EPI_ACT_ADD : EPI_ACT;
     cudaError_t e;
+    if (plus && c == 2) {
+      const size_t n = (size_t)B * H * W * gc;
+      conv1x1_into<T><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(x, xs, w1, ws, ctot, nf + gc,
+                                                                 nf, gc, (size_t)B * H * W);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    }
     if constexpr (sizeof(T) == 2)
-      e = conv3x3::launch_wgmma<conv3x3::ZeroPad>(g, w + woff, epi, s);
+      e = conv3x3::launch_tma(g, w + woff, epi, s);
     else
       e = conv3x3::launch_ffma<T, conv3x3::ZeroPad>(g, w + woff, epi, s);
     if (e != cudaSuccess) return e;

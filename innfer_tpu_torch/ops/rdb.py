@@ -51,8 +51,9 @@ def res_scale(dtype: torch.dtype) -> torch.Tensor:
 
 class PackedRDB(NamedTuple):
     """Kernel-layout parameters of one RDB: the five conv weights in the
-    packed layout of ``ops/conv3x3.py`` back to back, the biases back to
-    back (fp32), and the conv1x1 weights as [nf][gc] (None without plus)."""
+    packed layout of ``ops/conv3x3.py`` back to back (bf16 in the TMA
+    conv's column order), the biases back to back (fp32), and the conv1x1
+    weights as [nf][gc] (None without plus)."""
 
     w: torch.Tensor
     b: torch.Tensor
@@ -61,7 +62,9 @@ class PackedRDB(NamedTuple):
 
 def pack_rdb(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
              conv1x1_w: Optional[torch.Tensor], dtype: torch.dtype) -> PackedRDB:
-    w = torch.cat([pack_conv3x3(wc, dtype) for wc in weights])
+    """bf16 packs for the TMA conv (columns in ``tma_channels`` order), fp32
+    for the FFMA conv (plain order)."""
+    w = torch.cat([pack_conv3x3(wc, dtype, tma=dtype == torch.bfloat16) for wc in weights])
     b = torch.cat([bc.to(torch.float32).reshape(-1) for bc in biases])
     w1 = None
     if conv1x1_w is not None:

@@ -13,7 +13,11 @@ card's name, power limit, SM clock and power draw.  Kernels and shapes:
                 (a CycleGAN 1080p tile group).
 Weights come from a fixed seed and are packed once, outside the windows.
 With --profile it then prints, per CUDA kernel the call launches, its
-device ms per call and launches per call from torch.profiler (five calls).
+device ms per call and launches per call from torch.profiler (five calls),
+and for rdb each of the five conv launches' device ms in launch order
+beside its floor: the larger of its operations at 989 TFLOP/s and the
+workspace bytes it reads and writes (cin + cout channels a pixel) at
+3.35 TB/s.
 To compare two trees, unpack the other one (git archive) into a
 git-ignored directory and run both in one call on one card, in turns:
 a, b, b, a.
@@ -22,6 +26,28 @@ import argparse
 import math
 import subprocess
 import sys
+
+
+PEAK_BF16, HBM_BPS = 989e12, 3.35e12   # H100 SXM: dense bf16 FLOP/s, HBM bytes/s
+
+
+def conv_floors_ms(px: int, nf: int = 64, gc: int = 32) -> list:
+    """Each RDB conv's floor in ms at ``px`` pixels, bf16."""
+    out = []
+    for c in range(5):
+        cin, cout = nf + c * gc, gc if c < 4 else nf
+        out.append(max(2 * 9 * cin * cout * px / PEAK_BF16, 2 * (cin + cout) * px / HBM_BPS) * 1e3)
+    return out
+
+
+def launches_in_order(prof) -> list:
+    """(kernel name, device ms) of every kernel a torch.profiler run saw,
+    in launch order."""
+    from torch.autograd import DeviceType
+
+    ev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in ev]
 
 
 def main() -> None:
@@ -83,6 +109,17 @@ def main() -> None:
             if e.device_time_total > 0:
                 print(f"{args.label}: {e.device_time_total / 5e3:.3f} ms, {e.count // 5} per "
                       f"call: {e.key[:100]}", flush=True)
+        if args.kernel == "rdb":
+            convs = [ms for name, ms in launches_in_order(prof) if "conv" in name]
+            if len(convs) != 25:
+                print(f"{args.label}: {len(convs)} conv launches in the profile, not 25",
+                      flush=True)
+            else:
+                floors = conv_floors_ms(x.shape[1] * x.shape[2])
+                per = [sum(convs[c::5]) / 5 for c in range(5)]
+                print(f"{args.label}: per conv, device ms (floor ms): " + ", ".join(
+                    f"conv{c + 1} {m:.3f} ({f:.3f})" for c, (m, f) in enumerate(zip(per, floors)))
+                    + f"; sum {sum(per):.3f} ({sum(floors):.3f})", flush=True)
 
 
 if __name__ == "__main__":

@@ -12,8 +12,10 @@ from innfer_tpu_torch.ops import _build
 
 @pytest.mark.parametrize("name", ["rdb", "resnet_block"])
 def test_both_libraries_include_the_shared_conv_header(name):
+    """rdb.cu reaches the shared header through its TMA conv core."""
     deps = _build.local_includes(os.path.join(_build.CSRC, f"{name}.cu"))
-    assert [os.path.basename(d) for d in deps] == ["conv3x3_tc.cuh"]
+    want = {"rdb": ["conv3x3_tma.cuh", "conv3x3_tc.cuh"], "resnet_block": ["conv3x3_tc.cuh"]}
+    assert [os.path.basename(d) for d in deps] == want[name]
 
 
 @pytest.fixture
@@ -26,6 +28,7 @@ def csrc_copy(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("edited,changes", [
     ("conv3x3_tc.cuh", {"rdb", "resnet_block"}),
+    ("conv3x3_tma.cuh", {"rdb"}),
     ("rdb.cu", {"rdb"}),
     ("resnet_block.cu", {"resnet_block"}),
 ])

@@ -14,8 +14,10 @@ For the ResnetBlock in bf16, every value within 2^-7 (|ref| + |ref - x| +
 tests/test_torch_resnet.py).  The chain-mode trunk equals the per-RDB
 kernel path exactly: the same conv code and the same rounding steps.
 The bf16 kernels run on the tensor cores (wgmma); the cases cut ragged
-tiles (W, H not multiples of the 64-column, 2..8-row tile), cin and cout
-not multiples of the 16-channel chunk or of a wgmma width.
+tiles (W, H not multiples of the 64-column tile and of fused_rdb's 16- and
+8-row ones or fused_resnet_block's 2..8-row ones), cin and cout not
+multiples of the 16-channel chunk or of a wgmma width, and give
+fused_rdb's persistent grid fewer tiles than SMs and many more.
 """
 import math
 
@@ -53,7 +55,8 @@ def _rdb(dev, dtype, nf, gc, plus, seed):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.05)])
 @pytest.mark.parametrize("nf,gc,plus,hw", [(64, 32, False, (37, 70)), (64, 32, True, (37, 70)),
                                            (32, 16, True, (37, 70)), (24, 8, False, (37, 70)),
-                                           (64, 32, False, (9, 129)), (24, 8, True, (3, 65))])
+                                           (64, 32, False, (9, 129)), (24, 8, True, (3, 65)),
+                                           (64, 32, False, (181, 1000)), (64, 32, True, (17, 63))])
 def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, nf, gc, plus, hw):
     ws, bs, w1 = _rdb(cuda_device, dtype, nf, gc, plus, seed=1)
     g = torch.Generator().manual_seed(2)
@@ -104,17 +107,20 @@ def test_model_kernel_path_matches_torch_path_fp32(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nb,nr,plus", [(2, 3, False), (1, 3, True), (2, 1, False)])
-def test_trunk_matches_plain_and_per_rdb_path_on_card(cuda_device, dtype, nb, nr, plus):
+@pytest.mark.parametrize("nb,nr,plus,shape,nf,gc", [(2, 3, False, (1, 33, 45), 32, 16),
+                                                   (1, 3, True, (1, 33, 45), 32, 16),
+                                                   (2, 1, False, (1, 33, 45), 32, 16),
+                                                   (1, 3, True, (2, 181, 300), 64, 32)])
+def test_trunk_matches_plain_and_per_rdb_path_on_card(cuda_device, dtype, nb, nr, plus, shape,
+                                                      nf, gc):
     from innfer_tpu_torch.ops.rdb import fused_rdb_padded
 
-    nf, gc = 32, 16
     rdbs = [[_rdb(cuda_device, dtype, nf, gc, plus, seed=10 * r + c) for c in range(nr)]
             for r in range(nb)]
     ws = [[p[0] for p in row] for row in rdbs]
     bs = [[p[1] for p in row] for row in rdbs]
     w1 = [[p[2] for p in row] for row in rdbs] if plus else None
-    x = torch.randn(1, 33, 45, nf, generator=torch.Generator().manual_seed(3)).to(cuda_device, dtype)
+    x = torch.randn(*shape, nf, generator=torch.Generator().manual_seed(3)).to(cuda_device, dtype)
     before = fused_rdb_padded.launches, fused_rrdb_trunk.launches
     out = fused_rrdb_trunk(x, ws, bs, nb=nb, nr=nr, gc=gc, plus=plus, conv1x1_ws=w1)
     torch.cuda.synchronize()
@@ -130,6 +136,21 @@ def test_trunk_matches_plain_and_per_rdb_path_on_card(cuda_device, dtype, nb, nr
             z = fused_rdb(z, ws[r][c], bs[r][c], plus=plus, conv1x1_w=w1[r][c] if plus else None)
         z0 = z * res_scale(dtype) + z0
     assert torch.equal(out, z0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stack_equals_its_images_one_by_one_on_card(cuda_device, dtype):
+    """fused_rdb on a stack of 8 images equals 8 single-image launches bit
+    for bit: the persistent grid spreads the stack's tiles over the blocks
+    in another way than one image's, and no output may depend on which."""
+    ws, bs, _ = _rdb(cuda_device, dtype, 64, 32, False, seed=11)
+    x = torch.randn(8, 75, 150, 64, generator=torch.Generator().manual_seed(12)).to(cuda_device,
+                                                                                     dtype)
+    stack = fused_rdb(x, ws, bs)
+    single = torch.cat([fused_rdb(x[i: i + 1], ws, bs) for i in range(8)])
+    torch.cuda.synchronize()
+    assert torch.equal(stack, single)
 
 
 @pytest.mark.gpu
