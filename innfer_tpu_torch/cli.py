@@ -106,7 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-fused-chain", action="store_true",
                    help="Deprecated no-op: the sequential path is the default.")
     p.add_argument("--profile", type=str, default="",
-                   help="Write a torch.profiler Chrome trace to this directory.")
+                   help="Write a torch.profiler Chrome trace, with the program's spans, "
+                        "to this directory and log the spans' and counters' summary.")
     p.add_argument("--timing", action="store_true",
                    help="Log per-stage wall-clock timings.")
     p.add_argument("--metrics", type=str, default="",
@@ -151,7 +152,7 @@ def main(argv=None) -> int:
 
 
 def _run(args, rank: int, world: int) -> int:
-    from innfer_tpu_torch.observability import StageTimers, profile_trace
+    from innfer_tpu_torch.observability import TRACER, StageTimers, profile_trace
     from innfer_tpu_torch.parallel.mesh import local_devices, make_mesh
     from innfer_tpu_torch.pipeline import InferenceSession, select_presets
 
@@ -194,6 +195,8 @@ def _run(args, rank: int, world: int) -> int:
                         batch=resolve_batch(args.batch, presets, spatial=args.spatial))
     if timers is not None:
         timers.log_report()
+    if args.profile:
+        TRACER.log_summary()
     return 0
 
 

@@ -39,7 +39,6 @@ wasted device work: partial groups run at their natural size).
 """
 from __future__ import annotations
 
-import contextlib
 import logging
 import os
 import os.path as osp
@@ -60,6 +59,7 @@ from innfer_tpu_torch.loader import load_model
 from innfer_tpu_torch.metrics import psnr_np, ssim_np
 from innfer_tpu_torch.models import get_network
 from innfer_tpu_torch.models.base import ModelDef, Params
+from innfer_tpu_torch.observability import TRACER, span, stage
 from innfer_tpu_torch.ops import colors
 from innfer_tpu_torch.ops.filters import color_fix, guided_filter
 from innfer_tpu_torch.parallel.mesh import (Mesh, data_parallel, params_on,
@@ -71,11 +71,6 @@ from innfer_tpu_torch.runtime.native import PrefetchLoader
 from innfer_tpu_torch.tiling.engine import TiledRunner
 
 log = logging.getLogger("innfer_tpu_torch")
-
-def _stage(timers, name: str):
-    """``timers.stage(name)`` (observability.StageTimers), or nothing."""
-    return timers.stage(name) if timers is not None else contextlib.nullcontext()
-
 
 def _find_reference(metrics_dir: str, name: str) -> Optional[np.ndarray]:
     """The ground-truth image named ``name`` in ``metrics_dir``."""
@@ -231,6 +226,17 @@ def _postprocess_u8(x: torch.Tensor, *, denormalize: bool = False,
     return torch.round(torch.clamp(255.0 * x, 0, 255)).to(torch.uint8)
 
 
+def _to_u8(x: torch.Tensor, ref: Optional[np.ndarray], *, denormalize: bool,
+           batched: bool = False) -> torch.Tensor:
+    """:func:`_postprocess_u8`, then color_fix against the host u8 ``ref``
+    (uploaded here) where there is one: the span ``innfer.postprocess``."""
+    with span("innfer.postprocess", x.device):
+        u8 = _postprocess_u8(x, denormalize=denormalize, batched=batched)
+        if ref is None:
+            return u8
+        return color_fix(torch.from_numpy(np.ascontiguousarray(ref)).to(x.device), u8)
+
+
 class HostCopy:
     """A u8 device output on its way to host memory: the copy into pinned
     memory is queued at dispatch time (:meth:`start`), on the stream that
@@ -245,20 +251,25 @@ class HostCopy:
     def start(cls, u8: torch.Tensor) -> "HostCopy":
         if not u8.is_cuda:
             return cls(u8)
-        host = torch.empty(u8.shape, dtype=u8.dtype, pin_memory=True)
-        host.copy_(u8, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        with span("innfer.download", u8.device):
+            host = torch.empty(u8.shape, dtype=u8.dtype, pin_memory=True)
+            host.copy_(u8, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
         return cls(host, done)
 
     def split(self) -> List["HostCopy"]:
         """One HostCopy per image of a stacked (N, H, W, C) copy."""
         return [HostCopy(h, self.done) for h in self.host.unbind(0)]
 
-    def fetch(self) -> np.ndarray:
-        if self.done is not None:
-            self.done.synchronize()
-        return self.host.numpy()
+    def fetch(self, timers=None, **kw) -> np.ndarray:
+        """The host's wait for the copy: the stage ``fetch`` of ``timers``
+        (``observability.StageTimers``), or its span alone; ``kw``: the
+        span's (a request id)."""
+        with stage(timers, "fetch", **kw):
+            if self.done is not None:
+                self.done.synchronize()
+            return self.host.numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -553,16 +564,17 @@ class InferenceSession:
         ``color_ref`` (the prepared u8 input, on the host) applies
         color_fix on the device before the copy: uploading the small input
         moves fewer bytes than fetching the output and uploading it back."""
-        if not already_prepared:
-            img = self.prepare(img)
-        t_img = np2tensor(img, normalize=self.presets.normalize,
-                          dtype=self.compute_dtype, device=self.device)
-        u8 = _postprocess_u8(self.forward(t_img), denormalize=self.presets.normalize)
-        if color_ref is not None:
-            ref = torch.from_numpy(np.ascontiguousarray(color_ref)).to(self.device)
-            u8 = color_fix(ref.reshape(ref.shape[:2] + (-1,)), u8)
-        out = HostCopy.start(u8)
-        return out if host_copy else out.fetch()
+        with span("innfer.frame", self.device, root=True):
+            with span("innfer.upload", self.device):
+                if not already_prepared:
+                    img = self.prepare(img)
+                t_img = np2tensor(img, normalize=self.presets.normalize,
+                                  dtype=self.compute_dtype, device=self.device)
+            if color_ref is not None:
+                color_ref = color_ref.reshape(color_ref.shape[:2] + (-1,))
+            u8 = _to_u8(self.forward(t_img), color_ref, denormalize=self.presets.normalize)
+            out = HostCopy.start(u8)
+            return out if host_copy else out.fetch()
 
     # -- batched directory mode (innfer_tpu/pipeline.py:681-881) -----------
 
@@ -650,9 +662,10 @@ class InferenceSession:
             return [self.run_image(im, already_prepared=True, host_copy=host_copy,
                                    color_ref=im if use_color_fix else None)
                     for im in imgs]
-        stacked = np.stack(imgs)
-        t_img = np2tensor(stacked, normalize=self.presets.normalize,
-                          dtype=self.compute_dtype, device=self.device)
+        with span("innfer.upload", self.device):
+            stacked = np.stack(imgs)
+            t_img = np2tensor(stacked, normalize=self.presets.normalize,
+                              dtype=self.compute_dtype, device=self.device)
         mesh = self._mesh
         if (whole_ok and mesh is not None and mesh.shape.get("model", 1) == 1
                 and n % mesh.shape.get("data", 1) == 0):
@@ -661,9 +674,8 @@ class InferenceSession:
             t_out = data_parallel(lambda t: self.forward(t, force_whole=True), t_img, mesh)
         else:
             t_out = self.forward(t_img, force_whole=whole_ok)
-        u8 = _postprocess_u8(t_out, denormalize=self.presets.normalize, batched=True)
-        if use_color_fix:
-            u8 = color_fix(torch.from_numpy(stacked).to(self.device), u8)
+        u8 = _to_u8(t_out, stacked if use_color_fix else None,
+                    denormalize=self.presets.normalize, batched=True)
         outs = HostCopy.start(u8).split()
         return outs if host_copy else [o.fetch() for o in outs]
 
@@ -687,7 +699,12 @@ class InferenceSession:
         ``metrics_dir`` holds each output against the same-named ground
         truth (PSNR/SSIM, on the host; rows in ``self.last_metrics``);
         ``timers`` (``observability.StageTimers``) times the ``read``,
-        ``image``/``batch``, ``fetch`` and ``encode`` stages.
+        ``image``/``batch``, ``encode_wait``, ``fetch`` and ``encode``
+        stages.  Each stage is the tracer's span ``innfer.<stage>``, with
+        or without timers; each image takes a request id after its read, which
+        its ``image`` span and, on the encode threads, its ``fetch`` and
+        ``encode`` spans carry, and a group's ``batch`` span carries the
+        tuple of its images' ids.
 
         ``batch > 1`` groups same-shape prepared images and runs each full
         group through :meth:`run_batch`; ``batch=0`` sizes each shape's
@@ -704,10 +721,10 @@ class InferenceSession:
                     if n_enc > 0 else None)
         encodes: Deque = deque()
 
-        def finalize(out: HostCopy, dst: str, name: str, src: str, img_in: np.ndarray):
-            with _stage(timers, "fetch"):
-                img = out.fetch()
-            with _stage(timers, "encode"):
+        def finalize(out: HostCopy, dst: str, name: str, src: str, img_in: np.ndarray,
+                     rid: int):
+            img = out.fetch(timers, request=rid)
+            with stage(timers, "encode", request=rid):
                 if comp:
                     iio.save_img_comp([img_in, img], dst)
                 else:
@@ -729,38 +746,40 @@ class InferenceSession:
             if verbose:
                 print(f"{src} -> {dst} {img.shape[1]}x{img.shape[0]}")
 
-        def finish(name: str, src: str, img_in: np.ndarray, out: HostCopy):
+        def finish(name: str, src: str, img_in: np.ndarray, out: HostCopy, rid: int):
             dst = osp.join(output_dir, f"{name}.png")
             written.append(dst)
             if enc_pool is None:
-                finalize(out, dst, name, src, img_in)
+                finalize(out, dst, name, src, img_in, rid)
                 return
             # bound the outputs in flight: each holds a full output image
             # in pinned host memory
             while len(encodes) >= max(4, 2 * n_enc):
-                encodes.popleft().result()
-            encodes.append(enc_pool.submit(finalize, out, dst, name, src, img_in))
+                with stage(timers, "encode_wait", request=rid):
+                    encodes.popleft().result()
+            encodes.append(enc_pool.submit(finalize, out, dst, name, src, img_in, rid))
 
         def flush(group):
-            names, srcs, imgs = zip(*group)
+            names, srcs, imgs, rids = zip(*group)
             # one "batch" sample per group: its time per image is the
             # total over the group's size
-            with _stage(timers, "batch"):
+            with stage(timers, "batch", device=self.device, request=rids):
                 outs = self.run_batch(list(imgs), already_prepared=True,
                                       use_color_fix=use_color_fix, host_copy=True)
-            for name, src, img_in, out in zip(names, srcs, imgs, outs):
-                finish(name, src, img_in, out)
+            for name, src, img_in, out, rid in zip(names, srcs, imgs, outs, rids):
+                finish(name, src, img_in, out, rid)
 
         targets = {}   # shape key -> group size
         pending = {}   # shape key -> the images of its open group
         try:
             images = iter(loader)
             for _ in paths:
-                with _stage(timers, "read"):  # the wait for the next decoded image
+                with stage(timers, "read"):  # the wait for the next decoded image
                     _, src, img = next(images)
                 if img is None:
                     print(f"Error reading image {src}, skipping.")
                     continue
+                rid = TRACER.new_request()
                 name = osp.splitext(osp.basename(src))[0]
                 img_in = self.prepare(img)
                 key = (img_in.shape, str(img_in.dtype))
@@ -769,15 +788,15 @@ class InferenceSession:
                                     self.auto_batch(img_in.shape) if batch == 0 else 1)
                 if targets[key] > 1:
                     group = pending.setdefault(key, [])
-                    group.append((name, src, img_in))
+                    group.append((name, src, img_in, rid))
                     if len(group) == targets[key]:
                         flush(group)
                         pending[key] = []
                     continue
-                with _stage(timers, "image"):
+                with stage(timers, "image", request=rid):
                     out = self.run_image(img_in, already_prepared=True, host_copy=True,
                                          color_ref=img_in if use_color_fix else None)
-                finish(name, src, img_in, out)
+                finish(name, src, img_in, out, rid)
             for group in pending.values():
                 if group:
                     flush(group)

@@ -13,6 +13,13 @@ size and the plan's blend constants on the device.
     is ``tile_batch`` tiles, cut into even slices over the data devices.
   * ``hybrid_apply``: the whole-image LR trunk on an input padded to
     ``hybrid_dims``, then a tiled upsample tail recomposed the same way.
+
+Spans (``observability.span``, recorded under a profiler): a runner's call
+is ``innfer.tiling``, the hybrid trunk ``innfer.trunk``, each dispatch
+group ``innfer.tile_group``; what ``innfer.tiling`` holds outside them is
+the engine's own work (pad, cut, cast, recompose, crop).  Counters:
+``tile_px``, the pixels of the tiles handed to the groups at the model's
+input resolution, and ``tiled_px``, the unpadded image pixels they cover.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as TF
 
+from innfer_tpu_torch.observability import count, span
 from innfer_tpu_torch.parallel.mesh import Mesh, data_parallel
 from innfer_tpu_torch.tiling.plan import (MAX_GROUP_PX, TilePlan, make_auto_plan,
                                           make_cover_plan, make_reference_plan,
@@ -132,9 +140,15 @@ def _run_groups(fn: Callable, params, tiles: torch.Tensor, chunk: int,
     outs = []
     for i in range(0, tiles.shape[0], chunk):
         group = tiles[i: i + chunk]
-        outs.append(run(params, group) if mesh is None
-                    else data_parallel(run, group, mesh, params))
+        with span("innfer.tile_group", group.device):
+            outs.append(run(params, group) if mesh is None
+                        else data_parallel(run, group, mesh, params))
     return torch.cat(outs)
+
+
+def _count_tiles(plan: TilePlan, n_images: int, h: int, w: int) -> None:
+    count("tile_px", n_images * plan.n_tiles * plan.tile_h * plan.tile_w)
+    count("tiled_px", n_images * h * w)
 
 
 def group_chunk(plan: TilePlan, n_images: int, *, tile_batch: int = 8,
@@ -170,6 +184,7 @@ def tiled_apply(apply_fn: Callable, params, x: torch.Tensor, plan: TilePlan, *,
     the session rounds it), split over the data devices, as the JAX
     package's (innfer_tpu/tiling/engine.py:218-240)."""
     n_im = x.shape[0]
+    _count_tiles(plan, n_im, x.shape[1], x.shape[2])
     tiles = extract_tiles(pad_image(x, plan), plan)
     if compute_dtype is not None:
         tiles = tiles.to(compute_dtype)
@@ -229,10 +244,12 @@ def hybrid_apply(trunk_fn: Callable, tail_fn: Callable, params, x: torch.Tensor,
     reflect-padded image (exact whole-image math, no halo recompute); the
     tail is cut from the trunk's feature map by ``plan``, a cover plan
     over the padded dims, with overlap above the tail's receptive radius."""
+    _count_tiles(plan, x.shape[0], x.shape[1], x.shape[2])
     xp = _pad_to(x, plan.pad_h, plan.pad_w)
     if compute_dtype is not None:
         xp = xp.to(compute_dtype)
-    h = trunk_fn(params, xp)
+    with span("innfer.trunk", xp.device):
+        h = trunk_fn(params, xp)
     tiles = extract_tiles(h, plan)
     chunk = plan.chunk or min(tile_batch, plan.n_tiles)
     canvas = recompose_tiles(_run_groups(tail_fn, params, tiles, chunk), plan, consts)
@@ -381,13 +398,14 @@ class TiledRunner:
         plan = self.plan_for(h, w, x.is_cuda)
         consts = self._plan_consts(plan, x.device)
         self.last_mode = mode
-        if mode == "hybrid":
-            return hybrid_apply(
-                self.trunk_fn, self.tail_fn, params, x, plan,
-                tile_batch=self.tile_batch,
-                compute_dtype=self.compute_dtype, out_h=h * self.scale,
-                out_w=w * self.scale, consts=consts)
-        return tiled_apply(self.apply_fn, params, x, plan,
-                           tile_batch=self.tile_batch, output_index=self.output_index,
-                           compute_dtype=self.compute_dtype, consts=consts,
-                           max_group_px=self.max_group_px, mesh=self.mesh)
+        with span("innfer.tiling", x.device):
+            if mode == "hybrid":
+                return hybrid_apply(
+                    self.trunk_fn, self.tail_fn, params, x, plan,
+                    tile_batch=self.tile_batch,
+                    compute_dtype=self.compute_dtype, out_h=h * self.scale,
+                    out_w=w * self.scale, consts=consts)
+            return tiled_apply(self.apply_fn, params, x, plan,
+                               tile_batch=self.tile_batch, output_index=self.output_index,
+                               compute_dtype=self.compute_dtype, consts=consts,
+                               max_group_px=self.max_group_px, mesh=self.mesh)

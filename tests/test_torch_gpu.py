@@ -20,6 +20,7 @@ multiples of the 16-channel chunk or of a wgmma width, and give
 fused_rdb's persistent grid fewer tiles than SMs and many more.
 """
 import math
+import time
 
 import numpy as np
 import pytest
@@ -881,3 +882,51 @@ def test_pix2pix_passes_are_bit_identical(cuda_device, tmp_path, monkeypatch, dt
     first = np.stack(sess.run_batch(imgs))
     for _ in range(3):
         np.testing.assert_array_equal(np.stack(sess.run_batch(imgs)), first)
+
+
+@pytest.mark.gpu
+def test_frame_spans_on_card(cuda_device, tmp_path, monkeypatch):
+    """The nb=23 4x ESRGAN at 540x960 in bf16, auto -> hybrid, two frames
+    under the profiler: one ``innfer.frame`` per frame, every span's device
+    ms within its parent's, and every ``fused_rdb`` call inside an
+    ``innfer.trunk`` span (its host interval)."""
+    from innfer_tpu_torch import observability as obs
+    from innfer_tpu_torch.models import rrdb
+    from innfer_tpu_torch.pipeline import InferenceSession
+    from innfer_tpu_torch.tools import synth_params as SP
+
+    ckpt = str(tmp_path / "4x_esrgan_synth.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in SP.esrgan_state().items()}, ckpt)
+    sess = InferenceSession(ckpt, tile_mode="auto")
+    img = np.random.default_rng(5).integers(0, 256, (540, 960, 3), dtype=np.uint8)
+    with torch.no_grad():
+        sess.run_image(img)
+    calls, real = [], rrdb.fused_rdb
+
+    def spy(*a, **kw):
+        calls.append(time.perf_counter_ns())
+        return real(*a, **kw)
+
+    monkeypatch.setattr(rrdb, "fused_rdb", spy)
+    obs.reset()
+    before = fused_rdb.launches
+    try:
+        with torch.no_grad(), torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]):
+            outs = [sess.run_image(img) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert all(o.shape == (2160, 3840, 3) for o in outs)
+        s = obs.summary()
+        recs = [r for r in obs.TRACER.records if r.t1 is not None]
+        assert s["spans"]["innfer.frame"]["count"] == 2
+        assert s["spans"]["innfer.trunk"]["count"] == 2
+        for r in recs:
+            if r.parent is not None and r.events is not None and r.parent.events is not None:
+                assert r.device_ms() <= r.parent.device_ms() + 1e-3, (r.name, r.parent.name)
+        trunks = [r for r in recs if r.name == "innfer.trunk"]
+        assert fused_rdb.launches - before == len(calls) == 138
+        assert all(any(t.t0 <= c <= t.t1 for t in trunks) for c in calls)
+        assert all(row["device_ms"] is not None for name, row in s["spans"].items()
+                   if name != "innfer.fetch")
+    finally:
+        obs.reset()
