@@ -18,15 +18,18 @@ the final result line):
               and whether zlib.h and jpeglib.h are on g++'s include path.
               It fails where g++ and zlib.h are present and the library
               still does not build or load;
-  2. build    both kernel libraries (ops/csrc/rdb.cu with
-              ops/csrc/conv3x3_tma.cuh, resnet_block.cu; both with the
-              shared ops/csrc/conv3x3_tc.cuh) built at once with nvcc
-              (sm_90a); for each, ptxas' registers and spills of every
-              tensor-core conv instantiation (rdb's conv_tma, resnet_block's
-              conv_wgmma, one per N tile) with its dynamic shared memory,
-              and the counts of HGMMA (wgmma) and UTMALDG (TMA tensor load)
-              instructions in the library's SASS (cuobjdump): HGMMA must be
-              above 0 in both, UTMALDG in rdb's, and no conv_tma may spill;
+  2. build    the three kernel libraries (ops/csrc/rdb.cu and
+              tail_conv.cu with ops/csrc/conv3x3_tma.cuh, resnet_block.cu;
+              all with the shared ops/csrc/conv3x3_tc.cuh) built at once
+              with nvcc (sm_90a); for each, ptxas' registers and spills of
+              every tensor-core conv instantiation (rdb's conv_tma,
+              resnet_block's conv_wgmma, one per N tile, tail_conv's
+              conv_tail, one per N tile and mode) with its dynamic shared
+              memory, and the counts of HGMMA (wgmma) and UTMALDG (TMA
+              tensor load) instructions in the library's SASS (cuobjdump):
+              HGMMA must be above 0 in all, UTMALDG in rdb's and
+              tail_conv's, and no conv_tma or conv_tail may spill (but
+              the 16 B of tail_conv's HR conv, TMA_SPILL_B);
   3. kernel   fused_rdb against rdb_reference at nf=64, gc=32 on
               (1, 64, 1920, 64) strips, bf16 and fp32, with and without the
               ESRGAN+ plus; then timed with CUDA events at the main-path
@@ -37,27 +40,38 @@ the final result line):
               launches' device ms (torch.profiler, three calls) beside the
               conv's floor (scripts/time_fused_rdb.py's): the larger of its
               operations at 989 TFLOP/s and the workspace bytes it reads
-              and writes at 3.35 TB/s;
+              and writes at 3.35 TB/s.  Then tail_conv
+              (ops/tail_conv.py) at the four convs of the main-path
+              cell's tail group (4 tiles of 576x256 LR pixels, nf=64: the
+              upsample block written pixel-shuffled, the phase tail's
+              first conv written phase-major, the HR conv and conv_last on
+              the phase-major grid), each within one bf16 ulp of its plain
+              composition (at least 97% equal), timed beside its bound,
+              the plain composition and cuDNN's bf16 conv alone;
   4. main     a seeded synthetic 4x ESRGAN (nb=23, nf=64, gc=32, upconv)
               saved with torch.save, and seeded 540x960 and 1080x1920
               PNGs, run through InferenceSession.process in bf16 with
               tile_mode="auto" (auto-detection, auto -> hybrid): exactly
-              69 fused_rdb launches per image, 4x PNGs read back, and the
+              69 fused_rdb launches per image and 4 tail_conv launches per
+              tail group, and no other, 4x PNGs read back, and the
               same images through backend="torch" at >= 40 dB, with the
               kernel run's tiling asked for (tile_mode="hybrid": a trunk
               of plain ops keeps the auto grid);
   5. tail     the A/B of the JAX package's exact tail rewrites on the main
               path's 1080x1920 image: its trunk once, then the session's
               own runner (hybrid_apply's tile groups) runs the tail in four
-              forms, forced through models/common.py's predicates: (a) the
-              plain materialized tail, (b) LR-collapsed upconv blocks, (c)
+              forms, forced through models/common.py's predicates, on the
+              plain composition (no port kernel): (a) the plain
+              materialized tail, (b) LR-collapsed upconv blocks, (c)
               collapsed blocks + the phase tail (the JAX default), (d) (c)
-              with the dense phase conv; CUDA events in turns a b c d d c b
-              a, three times; each form's median ms, spread, FLOPs and PSNR
-              against (a) (bf16 at 1080p >= 35 dB, fp32 on a crop of the
-              trunk output >= 80 dB).  A form is adopted only if its median
-              beats (a) by more than the spread of its own reps; the
-              fastest adopted form must be the one the predicates encode.
+              with the dense phase conv; and (k), (c) as the session runs
+              it, on tail_conv (4 launches per tile group); CUDA events in
+              turns a b c d k k d c b a, three times; each form's median
+              ms, spread, FLOPs and PSNR against (a) (bf16 at 1080p >= 35
+              dB, fp32 on a crop of the trunk output >= 80 dB).  A form is
+              adopted only if its median beats (a) by more than the spread
+              of its own reps; the fastest adopted form must be the one the
+              predicates encode, and (k) must beat it likewise.
               Then the per-phase HR conv at one tail group's shape: the
               package's merged conv, the JAX split with a TF.pad per phase,
               and one pad with views;
@@ -99,7 +113,10 @@ the final result line):
               the runner's mode (SRResNet must not go hybrid), ms per
               image between CUDA events, wall, u8 PSNR of bf16 against the
               fp32 session (>= 30 dB) and fp32 on the card against fp32
-              on the CPU on a 64x64 crop (>= 80 dB), no kernel launched;
+              on the CPU on a 64x64 crop (>= 80 dB); in bf16 tail_conv
+              launches a multiple of one forward's (SRResNet's and PPON's
+              2x upsample blocks and phase tail; none for PAN) and no
+              other kernel runs, none in fp32;
               for PAN the auto plan's tile and the attention scores' bytes
               per tile group.  Then the ESRGAN variants (batch norm CNA and
               NAC, instance norm, prelu, swish; nf=64, gc=32, nb=2) fp32
@@ -212,7 +229,8 @@ the final result line):
               refused with the JAX package's reason; (e) dp tiles: the
               main path's session on 2 data slices, tile_mode="auto"
               (which stays on the tile grid), on the 540x960 PNG: 69
-              fused_rdb launches per slice run, u8 against a mesh-free
+              fused_rdb and 4 tail_conv launches per slice run, u8
+              against a mesh-free
               TiledRunner on the same plan >= 40 dB and >= 99.9% within
               one level; fp32 on a 64x64 crop max-abs <= 1e-5 against a
               mesh-free runner whose groups have the slices' composition
@@ -285,7 +303,11 @@ RB_PSNR_DB = 55.0                 # bf16 fused_resnet_block vs its plain version
 NB = 23                           # RRDBs of the main-path ESRGAN
 CG_BLOCKS, CG_NGF = 9, 64         # CycleGAN resnet_9blocks at its published width
 ZOO_BF16_DB, ZOO_FP32_DB = 30.0, 80.0   # bf16 vs fp32 session (u8); fp32 card vs CPU
-LIBS = ("rdb", "resnet_block")
+LIBS = ("rdb", "resnet_block", "tail_conv")
+# Spill bytes a TMA conv instantiation may have: none, but for tail_conv's
+# HR conv (N=256 a phase-major tile of 1 row), whose 16 B were there when
+# it was first measured on the H100; more fails the build phase.
+TMA_SPILL_B = {"conv_tail N=256 cpad=64 phase": 16}
 
 
 def fail(msg: str) -> None:
@@ -463,19 +485,30 @@ def sass_count(path: str, opcode: str) -> int:
 
 def conv_lines(lib, kernels: dict) -> tuple:
     """Per tensor-core conv instantiation of a library's ptxas report
-    (conv_tma for rdb, conv_wgmma for resnet_block): its registers, spill
-    bytes and dynamic shared memory; and the other kernels."""
+    (conv_tma for rdb, conv_wgmma for resnet_block, conv_tail for
+    tail_conv): its registers, spill bytes and dynamic shared memory; and
+    the other kernels.  The TMA convs' spills past TMA_SPILL_B are summed."""
     lines, spills, others = [], 0, []
     for func, k in kernels.items():
         m = re.search(r"conv_(tma|wgmma)ILi(\d+)E", func)
-        if not m:
+        t = re.search(r"conv_tailILi(\d+)ELi(\d+)ELb([01])E", func)
+        if m:
+            kind, nt = m.group(1), int(m.group(2))
+            smem = (lib.innfer_conv_tma_smem_bytes if kind == "tma"
+                    else lib.innfer_conv_tc_smem_bytes)(nt)
+            label = f"conv_{kind} N={nt}"
+        elif t:
+            kind, nt, ph = "tail", int(t.group(1)), t.group(3) == "1"
+            # the entry point's column count: mode PH's NT, or plain mode's 4 cpad
+            smem = lib.innfer_tail_conv_smem_bytes(nt if ph else 4 * int(t.group(2)), int(ph))
+            label = f"conv_tail N={nt} cpad={t.group(2)} {'phase' if ph else 'plain'}"
+        else:
             others.append(k)
             continue
-        kind, nt = m.group(1), int(m.group(2))
-        smem = (lib.innfer_conv_tma_smem_bytes if kind == "tma" else lib.innfer_conv_tc_smem_bytes)(nt)
-        lines.append((nt, f"conv_{kind} N={nt}: {k['regs']} regs, {k['spill']} B spilled, "
-                          f"{smem} B dynamic smem"))
-        spills += k["spill"] if kind == "tma" else 0
+        lines.append((label, f"{label}: {k['regs']} regs, {k['spill']} B spilled, "
+                             f"{smem} B dynamic smem"))
+        if kind in ("tma", "tail"):
+            spills += max(0, k["spill"] - TMA_SPILL_B.get(label, 0))
     return [t for _, t in sorted(lines)], spills, others
 
 
@@ -494,26 +527,29 @@ def phase_build():
             print(f"[build] {where} was already built; {counts}", flush=True)
         else:
             lines, spills, others = conv_lines(_build.library(name), ptxas_kernels(b.ptxas))
+            rest = (f"registers {min(k['regs'] for k in others)}-"
+                    f"{max(k['regs'] for k in others)}, spills "
+                    f"{sum(k['spill'] for k in others)} B" if others else "")
             print(f"[build] {where}: nvcc {b.seconds:.1f} s; tensor-core convs: "
-                  f"{'; '.join(lines)}; other kernels: {len(others)}, "
-                  f"registers {min(k['regs'] for k in others)}-"
-                  f"{max(k['regs'] for k in others)}, spills "
-                  f"{sum(k['spill'] for k in others)} B; {counts}", flush=True)
+                  f"{'; '.join(lines)}; other kernels: {len(others)}{', ' if rest else ''}"
+                  f"{rest}; {counts}", flush=True)
             if spills:
-                fail(f"{where}: the TMA convs spill {spills} B of registers")
+                fail(f"{where}: the TMA convs spill {spills} B of registers past "
+                     f"TMA_SPILL_B")
         if hgmma == 0:
             fail(f"{where} holds no HGMMA instruction: the bf16 conv is not on the tensor cores")
-        if name == "rdb" and utmaldg == 0:
-            fail(f"{where} holds no UTMALDG instruction: the RDB convs do not load through TMA")
+        if name in ("rdb", "tail_conv") and utmaldg == 0:
+            fail(f"{where} holds no UTMALDG instruction: its convs do not load through TMA")
     print(f"[build] {len(LIBS)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def kernel_counters():
     from innfer_tpu_torch.ops.rdb import fused_rdb, fused_rdb_padded, fused_rrdb_trunk
     from innfer_tpu_torch.ops.resnet_block import fused_resnet_block
+    from innfer_tpu_torch.ops.tail_conv import tail_conv
 
     return {f.__name__: f for f in (fused_rdb, fused_rdb_padded, fused_rrdb_trunk,
-                                    fused_resnet_block)}
+                                    fused_resnet_block, tail_conv)}
 
 
 def reset_counts() -> None:
@@ -588,6 +624,117 @@ def phase_kernel(dev):
     return row
 
 
+TAIL_GROUP = (4, 576, 256)   # the main-path cell's tail group: 4 tiles of 576x256 LR pixels
+TAIL_CONVS = ("up_shuffle", "phase_first", "hr_conv", "conv_last")
+
+
+def within_one_ulp(out, ref) -> bool:
+    """Every value within one bf16 ulp of the plain version's (plus 1e-3 of
+    its peak for values near 0) and at least 97% equal: the fp32 sums are
+    taken in another order, so a rounding may flip, and no more."""
+    out, ref = out.float(), ref.float()
+    tol = 2 ** -7 * ref.abs() + 1e-3 * max(1.0, ref.abs().max().item())
+    return (out.shape == ref.shape and bool(((out - ref).abs() <= tol).all())
+            and (out == ref).float().mean().item() >= 0.97)
+
+
+def phase_tail_conv(dev):
+    """The tail conv kernel (ops/tail_conv.py) at the four convs of the
+    main-path cell's tail group (TAIL_GROUP, nf 64): the upsample block
+    written pixel-shuffled, the phase tail's first conv written
+    phase-major, the HR conv and conv_last on the phase-major grid.  Each
+    against its plain composition (the route the tail takes off the
+    kernel: the bias route's conv, the activation, pixel_shuffle or the
+    merged phase conv) within one bf16 ulp, then timed with CUDA events
+    beside its bound, the plain composition and cuDNN's bf16 conv of the
+    same operations alone (the library yardstick: no activation, no
+    layout; the HR convs at HR resolution)."""
+    import torch
+    import torch.nn.functional as TF
+
+    from innfer_tpu_torch.models import common as C
+    from innfer_tpu_torch.nn import functional as F
+    from innfer_tpu_torch.nn import phase as PH
+    from innfer_tpu_torch.ops import tail_conv as TC
+
+    bf16, lrelu = torch.bfloat16, "leakyrelu"
+    b, h, w = TAIL_GROUP
+    g = torch.Generator().manual_seed(95)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    def nchw(x):  # the channels-last NCHW view cuDNN takes
+        return x.permute(0, 3, 1, 2)
+
+    wu, whr, wl = (rand(o, NF, 3, 3, scale=(9 * NF) ** -0.5).to(bf16) for o in (NF, NF, 3))
+    bu, bhr, bl = (rand(o, scale=0.05) for o in (NF, NF, 3))
+    w2 = C.collapse_upconv_weight(wu, None, 2)[0].to(bf16)
+    b2 = bu.repeat_interleave(4)
+    up = TC.pack_plain(PH.cmajor_to_phase_major(w2), PH.phase_bias(bu))
+    hr_pk, last_pk = TC.pack_phase(whr, bhr), TC.pack_phase(wl, bl)
+    hr_m = PH.merge_phase_kernels(PH.phase_kernels(whr, 2), 2)
+    last_m = PH.merge_phase_kernels(PH.phase_kernels(wl, 2), 2)
+    lr = rand(b, h, w, NF).to(bf16)
+    x2 = rand(b, 2 * h, 2 * w, NF).to(bf16)
+    ph = rand(b, 2 * h, 2 * w, 4 * NF).to(bf16)
+    x4 = rand(b, 4 * h, 4 * w, NF).to(bf16)
+    conv = lambda cin, cout, px: 2 * 9 * cin * cout * px  # noqa: E731
+    px = b * h * w
+    cases = {  # kernel, plain, library, FLOP, bytes (input read and output written once)
+        "up_shuffle": (
+            lambda: TC.tail_conv(lr, up, act=lrelu, layout="shuffle"),
+            lambda: F.act(lrelu, F.pixel_shuffle(F.conv2d(lr, w2, b2, padding=1), 2)),
+            lambda: TF.conv2d(nchw(lr), w2, b2.to(bf16), padding=1),
+            conv(NF, 4 * NF, px), 2 * (NF + 4 * NF) * px),
+        "phase_first": (
+            lambda: TC.tail_conv(x2, up, act=lrelu, layout="phase"),
+            lambda: F.act(lrelu, F.conv2d(x2, PH.cmajor_to_phase_major(w2), PH.phase_bias(bu),
+                                          padding=1)),
+            lambda: TF.conv2d(nchw(x2), w2, b2.to(bf16), padding=1),
+            conv(NF, 4 * NF, 4 * px), 2 * (NF + 4 * NF) * 4 * px),
+        "hr_conv": (
+            lambda: TC.tail_conv(ph, hr_pk, act=lrelu, layout="phase"),
+            lambda: F.act(lrelu, PH.conv_phases(ph, *hr_m, bhr, 2)),
+            lambda: TF.conv2d(nchw(x4), whr, bhr.to(bf16), padding=1),
+            conv(NF, NF, 16 * px), 2 * (NF + NF) * 16 * px),
+        "conv_last": (
+            lambda: TC.tail_conv(ph, last_pk, act=None, layout="phase"),
+            lambda: PH.conv_phases(ph, *last_m, bl, 2),
+            lambda: TF.conv2d(nchw(x4), wl, bl.to(bf16), padding=1),
+            conv(NF, 3, 16 * px), 2 * (NF + 3) * 16 * px),
+    }
+    rows = {}
+    for name, (kern, plain, lib, flops, nbytes) in cases.items():
+        before = TC.tail_conv.launches
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        if TC.tail_conv.launches != before + 1:
+            fail(f"tail_conv {name}: the wrapper did not launch the kernel")
+        err = (out.float() - ref.float()).abs().max().item()
+        equal = (out == ref).float().mean().item()
+        ok = within_one_ulp(out, ref)
+        del out, ref
+        if not ok:
+            fail(f"tail_conv {name} is not within one bf16 ulp of its plain composition: "
+                 f"max_abs {err:.3g}, {100 * equal:.2f}% equal")
+        ms = cuda_ms(kern, reps=10)
+        plain_ms = cuda_ms(plain, reps=3)
+        library_ms = cuda_ms(lib, reps=5)
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               **bound(flops, nbytes)}
+        row.update(rates(flops, ms, row["bound_ms"]))
+        rows[name] = row
+        print(f"[tail_conv] {name} {tuple(TAIL_GROUP)} LR px nf {NF}: kernel {ms:.3f} ms, "
+              f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}; {flops / 1e12:.3f} TFLOP, "
+              f"{nbytes / 1e9:.3f} GB), plain {plain_ms:.3f} ms, cuDNN bf16 conv alone "
+              f"{library_ms:.3f} ms, {row['tflops']:.1f} TFLOP/s achieved, "
+              f"{100 * row['bound_share']:.1f}% of the bound; max_abs {err:.3g}, "
+              f"{100 * equal:.3f}% equal (within one bf16 ulp)", flush=True)
+    del lr, x2, ph, x4
+    return rows
+
+
 def phase_main(dev, work):
     import numpy as np
     import torch
@@ -641,8 +788,12 @@ def phase_main(dev, work):
     want = 69 * len(sizes)
     if launches != want:
         fail(f"fused_rdb launched {launches} times for {len(sizes)} images; expected {want}")
-    if sum(counts.values()) != launches:
-        fail(f"the default ESRGAN path launched other kernels: {counts}")
+    # the tail: 4 tail_conv launches a tile group (the upsample block, the
+    # phase tail's first conv, its HR conv and conv_last)
+    groups = sum(len(im["tail"]) for im in per_image)
+    if counts != {**dict.fromkeys(counts, 0), "fused_rdb": launches, "tail_conv": 4 * groups}:
+        fail(f"the default ESRGAN path launched {counts}; expected {want} fused_rdb and "
+             f"{4 * groups} tail_conv ({groups} tile groups)")
     device_ms = [{k: sum(a.elapsed_time(b) for a, b in v) for k, v in im.items()}
                  for im in per_image]
 
@@ -671,7 +822,9 @@ def phase_main(dev, work):
     times = "; ".join(f"{n} trunk {t['trunk']:.1f} ms, tail {t['tail']:.1f} ms"
                       for n, t in zip(sizes, device_ms))
     print(f"[main] {len(sizes)} images in bf16, mode {runner.last_mode}: fused_rdb "
-          f"launches {launches} (69 per image); wall {wall:.3f} s for both "
+          f"launches {launches} (69 per image), tail_conv {counts['tail_conv']} (4 per tile "
+          f"group, {groups} groups; in the backend='torch' run too: backend names the RDB's "
+          f"route); wall {wall:.3f} s for both "
           f"(backend='torch', tile_mode='hybrid' {ref_wall:.3f} s); CUDA events: {times}; "
           f"PSNR vs backend='torch' {', '.join(f'{d:.1f}' for d in dbs)} dB", flush=True)
     if min(dbs) < MIN_PSNR_DB:
@@ -689,13 +842,15 @@ def phase_main(dev, work):
     print(f"[main] fp32 (1,40,56,3): kernel path vs torch path PSNR {db32:.1f} dB", flush=True)
     if db32 < 80.0 or not torch.isfinite(a).all():
         fail(f"fp32 kernel path vs torch path PSNR {db32:.1f} dB < 80")
-    return {"launches": launches, "ckpt": ckpt, "in_dir": in_dir, "out_dir": out_dir,
-            "n_images": len(sizes), "sizes": sizes, "mode": runner.last_mode}
+    return {"launches": launches, "tail_groups": groups, "ckpt": ckpt, "in_dir": in_dir,
+            "out_dir": out_dir, "n_images": len(sizes), "sizes": sizes,
+            "mode": runner.last_mode}
 
 
 TAIL_FORMS = {"a": "plain materialized tail", "b": "collapsed upconv, materialized HR tail",
               "c": "collapsed upconv, phase tail split per phase",
-              "d": "collapsed upconv, phase tail as one dense conv"}
+              "d": "collapsed upconv, phase tail as one dense conv",
+              "k": "(c) on the tail conv kernel"}
 TAIL_BF16_DB, TAIL_FP32_DB = 35.0, 80.0   # each tail form vs the plain tail
 
 
@@ -704,14 +859,15 @@ def tail_flops(h, w, nf=NF, out_nc=3) -> dict:
     image: up1 at 2x, up2, the HR conv and conv_last at 4x (3x3 convs; the
     collapse keeps the FLOPs).  The phase tail runs the HR conv and
     conv_last on 16 of 36 tap-slots per 4 output phases (16/9 of the HR
-    conv), the dense form on all 36 (4x)."""
+    conv), the dense form on all 36 (4x), the kernel on 9 (the HR conv's
+    own)."""
     conv = lambda cin, cout, px: 2 * 9 * cin * cout * px  # noqa: E731
     px = h * w
     up1, up2 = conv(nf, nf, 4 * px), conv(nf, nf, 16 * px)
     hr, last = conv(nf, nf, 16 * px), conv(nf, out_nc, 16 * px)
     plain = up1 + up2 + hr + last
     return {"a": plain, "b": plain, "c": up1 + up2 + (hr + last) * 16 / 9,
-            "d": up1 + up2 + (hr + last) * 4}
+            "d": up1 + up2 + (hr + last) * 4, "k": plain}
 
 
 @contextlib.contextmanager
@@ -720,16 +876,20 @@ def tail_form(form: str):
     to False, as the tests do (the predicates hold the eligibility of the
     collapse and the phase tail); form d also swaps the per-phase HR conv
     for the dense phase conv (its kernel cached on the ParamDict like the
-    package's)."""
+    package's).  Forms a-d run on the plain composition (ops/tail_conv's
+    gate patched to False), as the JAX package's rewrites; form k is (c)
+    as the session runs it, its convs on the tail conv kernel where the
+    gate holds."""
     from innfer_tpu_torch.models import common as C
     from innfer_tpu_torch.nn import functional as F
     from innfer_tpu_torch.nn import phase as PH
+    from innfer_tpu_torch.ops import tail_conv as TC
 
-    saved = C.upconv_collapse_ok, C.phase_tail_ok, C.phase_hr_conv
+    saved = C.upconv_collapse_ok, C.phase_tail_ok, C.phase_hr_conv, TC.fusable
 
-    def dense_hr_conv(params, p, key, r=2):
+    def dense_hr_conv(params, p, key, r=2, act=None):
         k = C.derived(params, "phase_dense", key, lambda w: PH.dense_phase_kernel(w, r))
-        return F.conv2d(p, k, PH.phase_bias(params.get(f"{key}.bias"), r), padding=1)
+        return F.act(act, F.conv2d(p, k, PH.phase_bias(params.get(f"{key}.bias"), r), padding=1))
 
     if form == "a":
         C.upconv_collapse_ok = lambda *a, **k: False
@@ -737,10 +897,12 @@ def tail_form(form: str):
         C.phase_tail_ok = lambda *a, **k: False
     if form == "d":
         C.phase_hr_conv = dense_hr_conv
+    if form != "k":
+        TC.fusable = lambda *a, **k: False
     try:
         yield
     finally:
-        C.upconv_collapse_ok, C.phase_tail_ok, C.phase_hr_conv = saved
+        C.upconv_collapse_ok, C.phase_tail_ok, C.phase_hr_conv, TC.fusable = saved
 
 
 def policy_form(params) -> str:
@@ -757,16 +919,19 @@ def policy_form(params) -> str:
 
 def phase_tail(dev, work, main):
     """The A/B of the JAX package's exact tail rewrites on the main path's
-    1080p image: the trunk runs once, then the session's own runner
-    (hybrid_apply's tile groups) runs the tail in each form, forced
-    through the predicates, in turns a b c d d c b a, three times; median
-    ms per tail, the spread of each form's reps, FLOPs, PSNR against the
-    plain tail (bf16 at 1080p, fp32 on a crop of the trunk output).  A form
-    is adopted only if its median beats (a) by more than the spread of its
+    1080p image, and of the tail conv kernel: the trunk runs once, then the
+    session's own runner (hybrid_apply's tile groups) runs the tail in each
+    form, forced through the predicates, in turns a b c d k k d c b a,
+    three times; median ms per tail, the spread of each form's reps, FLOPs,
+    PSNR against the plain tail (bf16 at 1080p, fp32 on a crop of the trunk
+    output).  Forms a-d run on the plain composition and launch no port
+    kernel; form k launches tail_conv 4 times a tile group.  A form is
+    adopted only if its median beats (a) by more than the spread of its
     own reps; the fastest adopted form must be the one the predicates
-    encode.  Then the per-phase conv at one tail group's shape, the
-    package's merged conv against the JAX package's split with asymmetric
-    pads (a TF.pad per phase) and against one pad with views."""
+    encode, and form k must beat it likewise.  Then the per-phase conv at
+    one tail group's shape, the package's merged conv against the JAX
+    package's split with asymmetric pads (a TF.pad per phase) and against
+    one pad with views."""
     import torch
 
     from innfer_tpu_torch.io import images as iio
@@ -787,24 +952,44 @@ def phase_tail(dev, work, main):
         fail("the [tail] runner is not hybrid")
     trunk = model.apply_trunk(params, _pad_to(x, plan.pad_h, plan.pad_w).to(bf16))
     runner.trunk_fn = lambda p, t: trunk  # noqa: E731  (the tail alone from here)
+    groups = [0]
+    tail_fn = runner.tail_fn
+
+    def counted(p, t):
+        groups[0] += 1
+        return tail_fn(p, t)
+
+    runner.tail_fn = counted
     flops = tail_flops(h, w)
     outs, times = {}, {f: [] for f in TAIL_FORMS}
     reset_counts()
+    launched = {f: [] for f in TAIL_FORMS}  # (tail_conv launches, tile groups) a run
+
+    def run(form):
+        before, g0 = read_counts()["tail_conv"], groups[0]
+        out = runner(params, x)
+        launched[form].append((read_counts()["tail_conv"] - before, groups[0] - g0))
+        return out
+
     for form in TAIL_FORMS:  # a first pass per form: derived weights, cuDNN set-up
         with tail_form(form):
-            outs[form] = runner(params, x)
+            outs[form] = run(form)
     for _ in range(3):
-        for form in "abcddcba":
+        for form in "abcdkkdcba":
             with tail_form(form):
                 torch.cuda.synchronize()
                 e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 e0.record()
-                runner(params, x)
+                run(form)
                 e1.record()
                 torch.cuda.synchronize()
                 times[form].append(e0.elapsed_time(e1))
-    if any(read_counts().values()):
-        fail(f"the tail launched a port kernel: {read_counts()}")
+    runner.tail_fn = tail_fn
+    wrong = {f: runs for f, runs in launched.items()
+             if any(n != (4 * g if f == "k" else 0) or g == 0 for n, g in runs)}
+    if wrong or any(v for k, v in read_counts().items() if k != "tail_conv"):
+        fail(f"the tail forms' tail_conv launches and tile groups {wrong} (4 a group in "
+             f"form k, none in a-d), all launches {read_counts()}")
     ref = outs["a"].float()
     peak = max(1.0, ref.abs().max().item())
     db16 = {f: (math.inf if (o.float() - ref).square().mean().item() == 0 else
@@ -826,6 +1011,7 @@ def phase_tail(dev, work, main):
         stats[f] = {"median": (t[2] + t[3]) / 2, "spread": t[-1] - t[0]}
     adopted = [f for f in "bcd" if stats["a"]["median"] - stats[f]["median"] > stats[f]["spread"]]
     best = min(adopted, key=lambda f: stats[f]["median"]) if adopted else "a"
+    kernel_gain = stats[best]["median"] - stats["k"]["median"]
     for f, label in TAIL_FORMS.items():
         st = stats[f]
         print(f"[tail] ({f}) {label}: median {st['median']:.2f} ms per {h}x{w} tail (spread "
@@ -837,11 +1023,15 @@ def phase_tail(dev, work, main):
     encoded = policy_form(params)
     print(f"[tail] adoption rule (median beats (a) by more than the form's spread): "
           f"{', '.join(adopted) or 'none'} beat (a); adopted ({best}); the predicates encode "
-          f"({encoded})", flush=True)
+          f"({encoded}); the kernel (k) beats ({best}) by {kernel_gain:.2f} ms (its spread "
+          f"{stats['k']['spread']:.2f} ms); (tail_conv launches, tile groups) a run of (k) "
+          f"{sorted(set(launched['k']))}", flush=True)
     if min(db16.values()) < TAIL_BF16_DB or min(db32.values()) < TAIL_FP32_DB:
         fail(f"a tail form disagrees with the plain tail: bf16 {db16}, fp32 {db32}")
     if encoded != best:
         fail(f"the measured policy ({best}) is not the one the predicates encode ({encoded})")
+    if kernel_gain <= stats["k"]["spread"]:
+        fail(f"the tail conv kernel (k) does not beat ({best}) by more than its spread")
 
     # the per-phase HR conv at one tail group's shape, three ways
     chunk = plan.chunk or min(runner.tile_batch, plan.n_tiles)
@@ -1016,7 +1206,7 @@ def phase_chain(dev, work, main):
         del os.environ["INNFER_RDB_CHAIN"]
     n = main["n_images"]
     want = {"fused_rdb": 0, "fused_rdb_padded": NB * 3 * n, "fused_rrdb_trunk": n,
-            "fused_resnet_block": 0}
+            "fused_resnet_block": 0, "tail_conv": 4 * main["tail_groups"]}
     if counts != want:
         fail(f"INNFER_RDB_CHAIN=1 session launches {counts}; expected {want}")
     dbs = []
@@ -1252,7 +1442,7 @@ def phase_cyclegan(dev, work):
         counts = read_counts()
     finally:
         resnet_model.fused_resnet_block = block_fn
-    want = {"fused_rdb": 0, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0,
+    want = {"fused_rdb": 0, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0, "tail_conv": 0,
             "fused_resnet_block": CG_BLOCKS * sum(g[0] for g in groups.values())}
     if runner.last_mode != "auto":
         fail(f"tile_mode auto ran {runner.last_mode!r} for the CycleGAN")
@@ -1512,10 +1702,18 @@ def phase_zoo(dev, work, main):
             fail(f"auto-detection read the {name} checkpoint as {model.name} {model.cfg}")
         plans = {n: runner.plan_for(h, w, on_cuda=True) for n, (h, w) in main["sizes"].items()}
         out16, out32 = (os.path.join(work, f"zoo_{name}_{t}") for t in ("bf16", "fp32"))
+        # the tail conv kernel's launches in one bf16 forward of a crop: those
+        # of SRResNet's and PPON's 2x upsample blocks and phase tail, none of
+        # PAN's own; the session launches a multiple of them, and nothing else
+        reset_counts()
+        model.apply(sess.stages[0].params, np2tensor(crop, dtype=torch.bfloat16, device=dev))
+        per_fwd = read_counts()["tail_conv"]
         written, wall, ms, counts = run_session(torch, sess, main["in_dir"], out16)
         mode = runner.last_mode
-        if any(counts.values()):
-            fail(f"{name} launched a kernel: {counts}")
+        tail = counts.pop("tail_conv")
+        if any(counts.values()) or (per_fwd == 0) != (name == "pan") or (
+                tail % max(per_fwd, 1) or (tail == 0) != (per_fwd == 0)):
+            fail(f"{name} launched {counts}, tail_conv {tail} ({per_fwd} a forward)")
         if name == "srresnet" and mode == "hybrid":
             fail("SRResNet's auto run went hybrid: its trunk runs no port kernel")
         sess32 = InferenceSession(ckpt, compute_dtype=torch.float32, tile_mode="auto")
@@ -1546,7 +1744,8 @@ def phase_zoo(dev, work, main):
               f"{wall:.3f} s for both; fp32 {', '.join(f'{t:.1f}' for t in ms32)} ms, wall "
               f"{wall32:.3f} s; bf16 vs fp32 u8 PSNR {', '.join(f'{d:.1f}' for d in dbs)} dB "
               f"(bar {ZOO_BF16_DB}); fp32 card vs CPU (1,64,64,3) {db32:.1f} dB "
-              f"(bar {ZOO_FP32_DB}); kernel launches 0{extra}", flush=True)
+              f"(bar {ZOO_FP32_DB}); tail_conv launches {tail} ({per_fwd} a forward), "
+              f"other kernels 0{extra}", flush=True)
         if min(dbs) < ZOO_BF16_DB:
             fail(f"{name}: bf16 vs fp32 PSNR {min(dbs):.1f} dB < {ZOO_BF16_DB}")
         if db32 < ZOO_FP32_DB:
@@ -1744,16 +1943,22 @@ def phase_i2i(dev, work, main):
 
     pipeline.guided_filter = counted_gf
 
-    def warm_twice(sess, in_dir, out_dir, label, **kw):
+    def warm_twice(sess, in_dir, out_dir, label, tail_per_fwd=0, **kw):
         """Process ``in_dir`` twice: the first pass carries cuDNN's set-up
         for each new shape, the second is the steady state.  Every
-        kernel's launches must stay 0 in both; returns the written paths,
-        the second pass's wall and ms per image, and the first's ms."""
+        kernel's launches must stay 0 in both, but tail_conv's: a positive
+        multiple of ``tail_per_fwd`` where that is not 0; returns the
+        written paths, the second pass's wall and ms per image, and the
+        first's ms."""
         cold = run_session(torch, sess, in_dir, out_dir, **kw)
         warm = run_session(torch, sess, in_dir, out_dir, **kw)
         for run in (cold, warm):
-            if any(run[3].values()):
-                fail(f"{label} launched a port kernel: {run[3]}")
+            counts = dict(run[3])
+            tail = counts.pop("tail_conv")
+            if any(counts.values()) or (
+                    tail % tail_per_fwd or tail == 0 if tail_per_fwd else tail):
+                fail(f"{label} launched a port kernel: {run[3]} (tail_conv: "
+                     f"{tail_per_fwd or 'none'} a forward)")
         return warm[0], warm[1], warm[2], cold[2]
 
     def session_pair(ckpt, in_dir, label, want_hw, **kw):
@@ -1858,8 +2063,9 @@ def phase_i2i(dev, work, main):
     # -cf on the zoo's 4x SRResNet at 540x960: color_fix's bicubic down/up
     sr_ckpt = os.path.join(work, "4x_synth_srresnet.pth")
     sess = InferenceSession(sr_ckpt, compute_dtype=torch.bfloat16, tile_mode="auto")
+    # the SRResNet's 2x upsample block and phase tail: 4 tail_conv launches a forward
     written, wall, ms, cold = warm_twice(sess, chain_in, os.path.join(work, "cf_out"), "-cf",
-                                         use_color_fix=True)
+                                         tail_per_fwd=4, use_color_fix=True)
     img_in = iio.read_img(src[names[0]])
     plain = iio.read_img(os.path.join(work, "zoo_srresnet_bf16", f"{names[0]}.png"))
     fixed = iio.read_img(written[0])
@@ -1873,7 +2079,7 @@ def phase_i2i(dev, work, main):
           f"events (the model; first pass {cold[0]:.2f}), wall {wall:.3f} s (color_fix on the "
           f"card included); output vs "
           f"color_fix on the CPU of the [zoo] run's PNG: {100 * share_cf:.4f}% within 1 level "
-          f"(bar 99.9%); kernel launches 0", flush=True)
+          f"(bar 99.9%); tail_conv 4 launches a forward, no other kernel", flush=True)
     if share_cf < 0.999:
         fail(f"-cf output within one level of the CPU's color_fix in {share_cf:.5f} < 0.999")
 
@@ -2038,7 +2244,7 @@ def phase_batch(dev, work):
     cg_ckpt = os.path.join(work, "cyclegan9_synth.pth")
     whole_p = select_presets("resnet_9blocks")
     whole_p.chop = False
-    want = {"fused_rdb": 0, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0}
+    want = {"fused_rdb": 0, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0, "tail_conv": 0}
     cg = {}
     for dt in (bf16, fp32):
         sess = InferenceSession(cg_ckpt, arch="resnet_9blocks", compute_dtype=dt,
@@ -2702,7 +2908,8 @@ def phase_parallel(dev, work, main, halo_shape=(1, 1088, 1920, NF)):
     print(f"[parallel] dp tiles: the main path's session on 2 data slices of cuda:0, bf16 auto "
           f"(mode {st.runner.last_mode}), {small}: {plan.n_tiles} tiles of {plan.tile_h}x"
           f"{plan.tile_w} in groups of {st.runner.tile_batch}, {slices} slices, fused_rdb "
-          f"launches {dp_counts['fused_rdb']} (69 x {slices} = {69 * slices}); runner "
+          f"launches {dp_counts['fused_rdb']} (69 x {slices} = {69 * slices}), tail_conv "
+          f"{dp_counts['tail_conv']} (4 x {slices}); runner "
           f"{ms_m:.1f} ms against {ms_f:.1f} ms mesh-free (CUDA events; overhead on one card); "
           f"u8 against the mesh-free runner {100 * share:.4f}% within one level (bar 99.9%), "
           f"PSNR {db:.1f} dB (bar {MIN_PSNR_DB}); fp32 64x64 crop max_abs {err32:.3g} against "
@@ -2710,8 +2917,9 @@ def phase_parallel(dev, work, main, halo_shape=(1, 1088, 1920, NF)):
           f"max|ref| {f32.abs().max().item():.3g}) against the same tile_batch; session wall "
           f"{dp_wall:.3f} s", flush=True)
     if dp_counts != {"fused_rdb": 69 * slices, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0,
-                     "fused_resnet_block": 0}:
-        fail(f"dp tiles launched {dp_counts}, expected 69 x {slices} fused_rdb")
+                     "fused_resnet_block": 0, "tail_conv": 4 * slices}:
+        fail(f"dp tiles launched {dp_counts}, expected 69 x {slices} fused_rdb and 4 x "
+             f"{slices} tail_conv (a forward's tail per slice)")
     if share < 0.999 or db < MIN_PSNR_DB or err32 > 1e-5 or err_tb > 5e-4 or len(dp_written) != 1:
         fail(f"dp tiles vs mesh-free: {share:.5f}, {db:.1f} dB, fp32 {err32}, {err_tb}")
 
@@ -2962,6 +3170,7 @@ def main() -> int:
     phase_build()
     with torch.no_grad():
         timing = phase_kernel(dev)
+        tail_rows = phase_tail_conv(dev)
         with tempfile.TemporaryDirectory() as work:
             main = phase_main(dev, work)
             phase_tail(dev, work, main)
@@ -2991,7 +3200,10 @@ def main() -> int:
         {"name": "fused_resnet_block", "route": "cuda",
          "source": "innfer_tpu_torch/ops/csrc/resnet_block.cu",
          "replaces": "innfer_tpu/ops/pallas/resnet_block.py:169", **rb},
-    ]
+    ] + [{"name": f"tail_conv.{conv}", "route": "cuda",
+          "source": "innfer_tpu_torch/ops/csrc/tail_conv.cu",
+          "replaces": "XLA's convs of innfer_tpu/models/common.py's tail (no TPU kernel)",
+          "launches": main["tail_groups"], **row} for conv, row in tail_rows.items()]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops", "bound_share")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))

@@ -12,6 +12,16 @@ and :func:`phase_tail_ok`, from an A/B on the H100 (``chip_smoke.py``
 blocks and the phase tail.  Each form stays callable, and tests force
 each by monkeypatching the predicates.  The rewrites' weights are derived
 once per parameter dict and dtype and kept in ``ParamDict.cache``.
+
+The tail's 2x convs (the upsample block's, the phase tail's first conv,
+its HR conv and conv_last) run on the hand-written bf16 conv of
+``ops/tail_conv.py`` wherever ``tail_conv.fusable`` holds (a bf16 CUDA
+tensor, an unsharded 3x3 weight, an activation of None, LeakyReLU or ReLU,
+channel counts the kernel takes): its epilogue adds the fp32 bias, rounds
+once, applies the activation in bf16 and writes the next op's layout.
+Elsewhere the plain composition below runs (the CPU, fp32, tp-sharded
+weights, tanh or sigmoid).  The tracer's counters ``tail_convs`` (every
+conv of the tail) and ``tail_convs_fused`` (those on the kernel) say which.
 """
 from __future__ import annotations
 
@@ -23,6 +33,8 @@ import torch
 from innfer_tpu_torch.nn import functional as F
 from innfer_tpu_torch.nn import phase as PH
 from innfer_tpu_torch.nn import resize as R
+from innfer_tpu_torch.observability import count
+from innfer_tpu_torch.ops import tail_conv as TC
 
 Params = dict
 
@@ -52,6 +64,30 @@ def upsample_indices(upscale: int, mode: str, start: int = 2) -> Tuple[List[int]
 
 def conv3x3(params: Params, x: torch.Tensor, key: str) -> torch.Tensor:
     return F.conv2d(x, params[f"{key}.weight"], params.get(f"{key}.bias"), padding=1)
+
+
+def apply_hr_convs(params: Params, h: torch.Tensor, prefix: str, hr0: int, act_type,
+                   act_key: str = "") -> torch.Tensor:
+    """A materialized tail's HR conv ``prefix.hr0``, its act (parameters
+    at ``act_key``) and conv_last ``prefix.hr0+2``: two tail convs at HR
+    resolution, counted, on the plain composition."""
+    count("tail_convs", 2)
+    h = F.act(act_type, conv3x3(params, h, f"{prefix}.{hr0}"), params=params, key=act_key)
+    return conv3x3(params, h, f"{prefix}.{hr0 + 2}")
+
+
+def _fused(params: Params, x: torch.Tensor, key: str, act, *, mode: str, pack,
+           layout: str, ok: bool = True) -> Optional[torch.Tensor]:
+    """Count one tail conv; where the caller's form allows it (``ok``) and
+    ``tail_conv.fusable`` holds for ``mode``, run it on the kernel (its
+    packed weights ``pack(weight)`` kept per ParamDict) with ``act`` fused,
+    in ``layout``; None where the caller runs the plain composition."""
+    count("tail_convs", 1)
+    if not (ok and TC.fusable(x, params.get(f"{key}.weight"), act, mode=mode)):
+        return None
+    count("tail_convs_fused", 1)
+    return TC.tail_conv(x, derived(params, f"tail_{mode}", key, pack), act=act,
+                        layout=layout)
 
 
 def derived(params: Params, tag: str, key: str, build):
@@ -118,8 +154,15 @@ def apply_upsample_block(params: Params, x: torch.Tensor, key: str, *,
     """One upsample block (upconv: nearest-resize + conv + act, reference
     block.py:348-361, LR-collapsed where :func:`upconv_collapse_ok` says;
     pixelshuffle: conv + shuffle + act, block.py:333-346).  ``act_key`` is
-    the act submodule's prefix, for prelu/swish parameters."""
-    if mode == "upconv" and upconv_collapse_ok(params, key, factor=factor):
+    the act submodule's prefix, for prelu/swish parameters.  At factor 2
+    a fused conv writes the shuffled output with the act applied."""
+    collapsed = mode == "upconv" and upconv_collapse_ok(params, key, factor=factor)
+    y = _fused(params, x, key, act_type, mode=mode, layout="shuffle",
+               ok=factor == 2 and (collapsed or mode == "pixelshuffle"),
+               pack=lambda w: TC.pack_plain(*_phase_major_block(params, key, mode, w)))
+    if y is not None:
+        return y
+    if collapsed:
         w2 = derived(params, "collapse", key, lambda w: collapse_upconv_weight(w, None, factor)[0])
         b = params.get(f"{key}.bias")
         b2 = None if b is None else b.repeat_interleave(factor * factor)
@@ -131,6 +174,15 @@ def apply_upsample_block(params: Params, x: torch.Tensor, key: str, *,
     else:
         raise NotImplementedError(f"upsample mode [{mode}] is not found")
     return F.act(act_type, x, params=params, key=act_key)
+
+
+def _phase_major_block(params: Params, key: str, mode: str, w: torch.Tensor):
+    """A factor-2 upsample block's LR conv (LR-collapsed for upconv) with its
+    output channels, and the bias, in phase-major order."""
+    b = params.get(f"{key}.bias")
+    if mode == "upconv":
+        return PH.cmajor_to_phase_major(collapse_upconv_weight(w, None, 2)[0]), PH.phase_bias(b)
+    return PH.cmajor_to_phase_major(w), PH.cmajor_bias_to_phase_major(b)
 
 
 _PHASE_SAFE_ACTS = (None, "relu", "leakyrelu", "lrelu", "tanh", "sigmoid")
@@ -158,12 +210,19 @@ def phase_tail_ok(params: Params, up_key: str, *, factor: int, up_mode: str,
     return w is not None and w.dim() == 4 and tuple(w.shape[2:]) == (3, 3)
 
 
-def phase_hr_conv(params: Params, p: torch.Tensor, key: str, r: int = 2) -> torch.Tensor:
-    """One HR 3x3 conv of the tail in phase space, its merged per-phase
-    kernels (``nn/phase.merge_phase_kernels``) built once per ParamDict."""
+def phase_hr_conv(params: Params, p: torch.Tensor, key: str, r: int = 2,
+                  act=None) -> torch.Tensor:
+    """One HR 3x3 conv of the tail in phase space, then ``act``: on the
+    kernel at the HR conv's own operations where it is fusable, else the
+    merged per-phase kernels (``nn/phase.merge_phase_kernels``), built once
+    per ParamDict."""
+    y = _fused(params, p, key, act, mode="phase", layout="phase", ok=r == 2,
+               pack=lambda w: TC.pack_phase(w, params.get(f"{key}.bias")))
+    if y is not None:
+        return y
     merged, offsets = derived(params, "phase", key,
                               lambda w: PH.merge_phase_kernels(PH.phase_kernels(w, r), r))
-    return PH.conv_phases(p, merged, offsets, params.get(f"{key}.bias"), r)
+    return F.act(act, PH.conv_phases(p, merged, offsets, params.get(f"{key}.bias"), r))
 
 
 def apply_phase_tail(params: Params, h: torch.Tensor, *, up_key: str, up_mode: str,
@@ -175,19 +234,20 @@ def apply_phase_tail(params: Params, h: torch.Tensor, *, up_key: str, up_mode: s
     materialized tail, summed in another order; no HR-resolution
     activation of nf channels is ever shuffled."""
     r = 2
-    b = params.get(f"{up_key}.bias")
-    if up_mode == "upconv":
-        w2 = derived(params, "phase_upconv", up_key, lambda w: PH.cmajor_to_phase_major(
-            collapse_upconv_weight(w, None, r)[0], r))
-        p = F.conv2d(h, w2, PH.phase_bias(b, r), padding=1)
-    else:  # pixelshuffle: the conv's channels are already per phase
-        w2 = derived(params, "phase_shuffle", up_key, lambda w: PH.cmajor_to_phase_major(w, r))
-        p = F.conv2d(h, w2, PH.cmajor_bias_to_phase_major(b, r), padding=1)
-    p = F.act(act_type, p)
-    p = F.act(act_type, phase_hr_conv(params, p, f"{out_prefix}.{hr0}", r))
-    p = phase_hr_conv(params, p, f"{out_prefix}.{hr0 + 2}", r)
-    if finalact:
-        p = F.act(finalact, p)
+    p = _fused(params, h, up_key, act_type, mode=up_mode, layout="phase",
+               pack=lambda w: TC.pack_plain(*_phase_major_block(params, up_key, up_mode, w)))
+    if p is None:
+        b = params.get(f"{up_key}.bias")
+        if up_mode == "upconv":
+            w2 = derived(params, "phase_upconv", up_key, lambda w: PH.cmajor_to_phase_major(
+                collapse_upconv_weight(w, None, r)[0], r))
+            p = F.conv2d(h, w2, PH.phase_bias(b, r), padding=1)
+        else:  # pixelshuffle: the conv's channels are already per phase
+            w2 = derived(params, "phase_shuffle", up_key, lambda w: PH.cmajor_to_phase_major(w, r))
+            p = F.conv2d(h, w2, PH.cmajor_bias_to_phase_major(b, r), padding=1)
+        p = F.act(act_type, p)
+    p = phase_hr_conv(params, p, f"{out_prefix}.{hr0}", r, act=act_type)
+    p = phase_hr_conv(params, p, f"{out_prefix}.{hr0 + 2}", r, act=finalact)
     return PH.phase_shuffle_out(p, r)
 
 

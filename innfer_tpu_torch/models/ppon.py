@@ -67,8 +67,7 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
         for ci in up_convs:
             h = C.apply_upsample_block(params, h, f"{mod}.{ci}", mode="upconv",
                                        factor=factor, act_type=act_type)
-        h = F.act(act_type, C.conv3x3(params, h, f"{mod}.{hr0}"))
-        return C.conv3x3(params, h, f"{mod}.{hr0 + 2}")
+        return C.apply_hr_convs(params, h, mod, hr0, act_type)
 
     def apply(params, x: torch.Tensor):
         fea = C.conv3x3(params, x, "CFEM.0")

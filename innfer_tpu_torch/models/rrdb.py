@@ -295,9 +295,7 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
                                    up_mode=up_mode, act_type=act_type, hr0=hr0,
                                    finalact=finalact)
             return _outm(h, outm)
-        h = F.act(act_type, C.conv3x3(params, h, f"model.{hr0}"), params=params,
-                  key=f"model.{hr0 + 1}")
-        h = C.conv3x3(params, h, f"model.{hr0 + 2}")
+        h = C.apply_hr_convs(params, h, "model", hr0, act_type, act_key=f"model.{hr0 + 1}")
         if finalact:
             # outact follows HR_conv1 in the top-level sequential
             # (RRDBNet_arch.py:45-48)

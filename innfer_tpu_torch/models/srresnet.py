@@ -87,9 +87,7 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
                                    up_mode=up_mode, act_type=act_type, hr0=hr0,
                                    finalact=finalact)
             return _outm(h, outm)
-        h = F.act(act_type, C.conv3x3(params, h, f"model.{hr0}"), params=params,
-                  key=f"model.{hr0 + 1}")
-        h = C.conv3x3(params, h, f"model.{hr0 + 2}")
+        h = C.apply_hr_convs(params, h, "model", hr0, act_type, act_key=f"model.{hr0 + 1}")
         if finalact:
             h = F.act(finalact, h, params=params, key=f"model.{hr0 + 3}")
         return _outm(h, outm)

@@ -140,6 +140,9 @@ SIGNATURES = {
         "innfer_resnet_block_forward": ([_vp] * 8 + [_i] * 4 + [_f, _i, _vp], _i),
         "innfer_resnet_block_stats_floats": ([_i] * 5, _ll),
     },
+    "tail_conv": {
+        "innfer_tail_conv": ([_vp] * 4 + [_i] * 9 + [_vp], _i),
+    },
 }
 
 
@@ -169,6 +172,11 @@ def rdb_library() -> ctypes.CDLL:
 def resnet_block_library() -> ctypes.CDLL:
     """The fused-ResnetBlock library (``csrc/resnet_block.cu``)."""
     return library("resnet_block")
+
+
+def tail_conv_library() -> ctypes.CDLL:
+    """The SR tail's conv library (``csrc/tail_conv.cu``)."""
+    return library("tail_conv")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -2,7 +2,10 @@
 // producer warp, two warp-specialised wgmma consumer warpgroups, an
 // mbarrier ring of stages, and a persistent grid.  rdb.cu's five convs run
 // on it; resnet_block.cu keeps conv3x3_tc.cuh's conv_wgmma, whose reflect
-// padding needs per-pixel addresses that a TMA box cannot give.
+// padding needs per-pixel addresses that a TMA box cannot give.  The
+// pipeline's pieces (init_ring, produce, Ring, TileWalk, tap_mmas,
+// persistent_grid) are also tail_conv.cu's, which adds its own tap loop and
+// epilogue to them.
 //
 // The GEMM is conv_wgmma's: M = output pixels, N = all cout output
 // channels of one N tile, K = 9 taps x cin in 16-channel chunks.  A tile is
@@ -91,20 +94,24 @@ __host__ __device__ constexpr int tma_rows(int nt) {  // R: rows per consumer
   return nt >= 256 ? 1 : nt >= 128 ? 2 : nt >= 64 ? 4 : 8;
 }
 
-template <int NT> struct TmaCfg {
+// A stage ring of tiles of NT accumulator columns whose chunks carry weight
+// blocks BN columns wide, one per tap (BN = NT for conv_tma).
+template <int NT, int BN = NT> struct TmaCfg {
   static constexpr int R = tma_rows(NT);
   static constexpr int TH = tma::CONSUMERS * R;              // output rows per tile
   static constexpr int BOX_ROWS = TH + 2;
   static constexpr int BOX_BYTES = BOX_ROWS * tma::HP_W * 16;  // one 8-channel plane
   static constexpr int PLANE = (BOX_BYTES + 127) / 128 * 128;  // TMA wants 128-byte dsts
   static constexpr int A_BYTES = 2 * PLANE;
-  static constexpr int B_BYTES = 9 * KC * NT * 2;            // one 16-channel chunk's weights
+  static constexpr int B_BYTES = 9 * KC * BN * 2;            // one 16-channel chunk's weights
   static constexpr int STAGE = A_BYTES + B_BYTES;
   static constexpr int BARS = 2 * tma::MAX_STAGES * 8;       // full[], empty[]
   static constexpr int STAGES_FIT = (tma::SMEM_MAX - 128 - BARS) / STAGE;
   static constexpr int STAGES = STAGES_FIT < tma::MAX_STAGES ? STAGES_FIT : tma::MAX_STAGES;
   static constexpr int SMEM = 128 + STAGES * STAGE + BARS;   // 128: alignment slack
   static constexpr uint32_t TX = 2 * BOX_BYTES + B_BYTES;    // bytes landing per stage
+  static_assert(STAGES >= 2 && SMEM <= tma::SMEM_MAX, "shared memory");
+  static_assert(BOX_ROWS <= 256 && PLANE / 16 < (1 << 14), "TMA box, descriptor LBO");
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -162,16 +169,127 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
-struct TileWalk {  // the row-major tile order of one conv
+struct TileWalk {  // the row-major tile order of one conv: N group, image, tile row, column
   int tx_n, ty_n, per_img, per_group, count;
-  __device__ TileWalk(const Geom& g, int th) {
-    tx_n = (g.W + tma::TW - 1) / tma::TW;
-    ty_n = (g.H + th - 1) / th;
+  __host__ __device__ TileWalk(int B, int H, int W, int groups, int th) {
+    tx_n = (W + tma::TW - 1) / tma::TW;
+    ty_n = (H + th - 1) / th;
     per_img = tx_n * ty_n;
-    per_group = per_img * g.B;
-    count = per_group * n_groups(g.cout);
+    per_group = per_img * B;
+    count = per_group * groups;
+  }
+  __host__ __device__ TileWalk(const Geom& g, int th)
+      : TileWalk(g.B, g.H, g.W, n_groups(g.cout), th) {}
+  struct Tile {
+    int grp, b, y0, x0;  // N group, image, first row and column
+  };
+  __device__ Tile at(int t, int th) const {
+    const int rem = t % per_group, ti = rem % per_img;
+    return {t / per_group, rem / per_img, (ti / tx_n) * th, (ti % tx_n) * tma::TW};
   }
 };
+
+// Thread 0, before the block's __syncthreads: each stage's "full" barrier
+// (armed by the producer) and "empty" one (an arrive from each consumer warp).
+template <class C>
+__device__ __forceinline__ void init_ring(uint32_t bars) {
+  for (int s = 0; s < C::STAGES; ++s) {
+    mbar_init(bars + 8 * s, 1);
+    mbar_init(bars + 8 * (tma::MAX_STAGES + s), tma::CONSUMERS * 4);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The producer, one thread: for each of the block's tiles, each of its
+// nchunks 16-channel chunks into the next free stage: the halo as two
+// 8-channel boxes (channels [0, head_ch) from head_map, the others from
+// src_map; a half past cin is read at channel ctot, past the tensor, all
+// zeros) and the chunk's weights (the N group's chunks back to back in w)
+// as one bulk copy.
+template <class C>
+__device__ __forceinline__ void produce(const TileWalk& walk, int nchunks, uint32_t sbase,
+                                        uint32_t bars, const __nv_bfloat16* w,
+                                        const CUtensorMap* head_map, const CUtensorMap* src_map,
+                                        int head_ch, int cin, int ctot) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(head_map))
+               : "memory");
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(src_map))
+               : "memory");
+  int s = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < walk.count; t += gridDim.x) {
+    const TileWalk::Tile tl = walk.at(t, C::TH);
+    const char* wsrc = reinterpret_cast<const char*>(w) + (size_t)tl.grp * nchunks * C::B_BYTES;
+    for (int k = 0; k < nchunks; ++k) {
+      mbar_wait(bars + 8 * (tma::MAX_STAGES + s), phase ^ 1);
+      const uint32_t full = bars + 8 * s, a = sbase + s * C::STAGE;
+      mbar_expect_tx(full, C::TX);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = k * KC + 8 * h;
+        if (c < cin && c < head_ch)
+          tma_load_4d(a + h * C::PLANE, head_map, full, c, tl.x0 - 1, tl.y0 - 1, tl.b);
+        else
+          tma_load_4d(a + h * C::PLANE, src_map, full, c < cin ? c : ctot, tl.x0 - 1,
+                      tl.y0 - 1, tl.b);
+      }
+      bulk_load(a + C::A_BYTES, wsrc + (size_t)k * C::B_BYTES, C::B_BYTES, full);
+      if (++s == C::STAGES) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// A consumer warpgroup's place in the stage ring: the next chunk's stage s
+// and its phase, and the stage of the chunk whose wgmmas may still be in
+// flight.  Per chunk: acquire() waits for its stage to fill and returns its
+// address; the caller issues the chunk's wgmmas; release() commits them as
+// one group, retires the previous chunk's group (wgmma.wait_group 1) and
+// releases that stage with one arrive a warp.  drain() ends a tile.
+template <class C> struct Ring {
+  int s = 0, prev = -1;
+  uint32_t phase = 0;
+  __device__ __forceinline__ uint32_t acquire(uint32_t sbase, uint32_t bars) {
+    mbar_wait(bars + 8 * s, phase);
+    wgmma_fence();
+    return sbase + s * C::STAGE;
+  }
+  __device__ __forceinline__ void release(uint32_t bars, int lane) {
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (prev >= 0 && lane == 0) mbar_arrive(bars + 8 * (tma::MAX_STAGES + prev));
+    prev = s;
+    if (++s == C::STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+  __device__ __forceinline__ void drain(uint32_t bars, int lane) {
+    wgmma_wait<0>();
+    if (prev >= 0 && lane == 0) mbar_arrive(bars + 8 * (tma::MAX_STAGES + prev));
+    prev = -1;
+  }
+};
+
+// One chunk's 9 R wgmmas of the plain 3x3 conv: tap (dy, dx) of output row
+// row0 + m reads the halo at pixel offset (row0 + m + dy) * 66 + dx of the
+// stage at a; its weights are the tap's [half][NT][8] block at b.
+template <int NT, int R>
+__device__ __forceinline__ void tap_mmas(float (&acc)[R][NT / 2], uint32_t a, uint32_t b,
+                                         int row0, int plane) {
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dy = tap / 3, dx = tap % 3;
+    const uint64_t db = smem_desc(b + tap * KC * NT * 2, NT * 16, 128);
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const uint64_t da = smem_desc(a + ((row0 + m + dy) * tma::HP_W + dx) * 16, plane, 128);
+      wgmma<NT>(acc[m], da, db);
+    }
+  }
+}
 
 template <int NT, class Epi>
 __global__ void __launch_bounds__(tma::THREADS, 1)
@@ -186,51 +304,14 @@ conv_tma(const __grid_constant__ CUtensorMap head_map, const __grid_constant__ C
   const TileWalk walk(g, C::TH);
   const int nchunks = chunks(g.cin);
 
-  if (tid == 0) {
-    for (int s = 0; s < C::STAGES; ++s) {
-      mbar_init(bars + 8 * s, 1);                                         // full
-      mbar_init(bars + 8 * (tma::MAX_STAGES + s), tma::CONSUMERS * 4);   // empty: a warp each
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (tid == 0) init_ring<C>(bars);
   __syncthreads();
 
   if (tid < 128) {
     // ---- producer warpgroup: one thread issues every copy ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(tma::PRODUCER_REGS));
-    if (tid == 0) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&head_map))
-                   : "memory");
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&src_map))
-                   : "memory");
-      int s = 0;
-      uint32_t phase = 0;
-      for (int t = blockIdx.x; t < walk.count; t += gridDim.x) {
-        const int grp = t / walk.per_group, rem = t % walk.per_group;
-        const int b = rem / walk.per_img, ti = rem % walk.per_img;
-        const int y0 = (ti / walk.tx_n) * C::TH, x0 = (ti % walk.tx_n) * tma::TW;
-        const char* wsrc = reinterpret_cast<const char*>(w) + (size_t)grp * nchunks * C::B_BYTES;
-        for (int k = 0; k < nchunks; ++k) {
-          mbar_wait(bars + 8 * (tma::MAX_STAGES + s), phase ^ 1);
-          const uint32_t full = bars + 8 * s, a = sbase + s * C::STAGE;
-          mbar_expect_tx(full, C::TX);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int c = k * KC + 8 * h;
-            if (c < g.cin && c < g.head_ch)
-              tma_load_4d(a + h * C::PLANE, &head_map, full, c, x0 - 1, y0 - 1, b);
-            else  // past cin: a channel coordinate past the tensor reads zeros
-              tma_load_4d(a + h * C::PLANE, &src_map, full, c < g.cin ? c : g.ctot, x0 - 1,
-                          y0 - 1, b);
-          }
-          bulk_load(a + C::A_BYTES, wsrc + (size_t)k * C::B_BYTES, C::B_BYTES, full);
-          if (++s == C::STAGES) {
-            s = 0;
-            phase ^= 1;
-          }
-        }
-      }
-    }
+    if (tid == 0)
+      produce<C>(walk, nchunks, sbase, bars, w, &head_map, &src_map, g.head_ch, g.cin, g.ctot);
   } else {
     // ---- consumer warpgroups: wgmma and the epilogue ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(tma::CONSUMER_REGS));
@@ -242,13 +323,11 @@ conv_tma(const __grid_constant__ CUtensorMap head_map, const __grid_constant__ C
     // that only N <= 64 can spare; wider tiles store pairs of channels.
     constexpr int K = NT / 4;
     constexpr bool RUNS = NT <= 64;
-    int s = 0;
-    uint32_t phase = 0;
+    Ring<C> ring;
     for (int t = blockIdx.x; t < walk.count; t += gridDim.x) {
-      const int grp = t / walk.per_group, rem = t % walk.per_group;
-      const int b = rem / walk.per_img, ti = rem % walk.per_img;
-      const int y0 = (ti / walk.tx_n) * C::TH + cw * C::R, x0 = (ti % walk.tx_n) * tma::TW;
-      const int c0 = grp * NT + K * (lane % 4);
+      const TileWalk::Tile tl = walk.at(t, C::TH);
+      const int b = tl.b, y0 = tl.y0 + cw * C::R, x0 = tl.x0;
+      const int c0 = tl.grp * NT + K * (lane % 4);
       float bias[RUNS ? K : 1];  // read ahead of the epilogue
 #pragma unroll
       for (int i = 0; i < (RUNS ? K : 0); ++i) bias[i] = c0 + i < g.cout ? g.bias[c0 + i] : 0.f;
@@ -258,33 +337,12 @@ conv_tma(const __grid_constant__ CUtensorMap head_map, const __grid_constant__ C
 #pragma unroll
         for (int j = 0; j < NT / 2; ++j) acc[m][j] = 0.f;
 
-      int prev = -1;
       for (int k = 0; k < nchunks; ++k) {
-        mbar_wait(bars + 8 * s, phase);
-        const uint32_t a = sbase + s * C::STAGE;
-        wgmma_fence();
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-          const int dy = tap / 3, dx = tap % 3;
-          const uint64_t db = smem_desc(a + C::A_BYTES + tap * KC * NT * 2, NT * 16, 128);
-#pragma unroll
-          for (int m = 0; m < C::R; ++m) {
-            const int r = cw * C::R + m;
-            const uint64_t da = smem_desc(a + ((r + dy) * tma::HP_W + dx) * 16, C::PLANE, 128);
-            wgmma<NT>(acc[m], da, db);
-          }
-        }
-        wgmma_commit();
-        wgmma_wait<1>();  // the previous chunk's wgmmas are done: release its stage
-        if (prev >= 0 && lane == 0) mbar_arrive(bars + 8 * (tma::MAX_STAGES + prev));
-        prev = s;
-        if (++s == C::STAGES) {
-          s = 0;
-          phase ^= 1;
-        }
+        const uint32_t a = ring.acquire(sbase, bars);
+        tap_mmas<NT, C::R>(acc, a, a + C::A_BYTES, cw * C::R, C::PLANE);
+        ring.release(bars, lane);
       }
-      wgmma_wait<0>();
-      if (prev >= 0 && lane == 0) mbar_arrive(bars + 8 * (tma::MAX_STAGES + prev));
+      ring.drain(bars, lane);
 
       // epilogue: thread (warp, lane) holds pixels 16 warp + lane / 4 (+ 8)
       // of each of its rows, K channels from c0 each; a row's reads are
@@ -363,33 +421,42 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* base, int ch, int st
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int NT, class Epi>
-cudaError_t launch_tma_nt(const Geom& g, const __nv_bfloat16* w, const Epi& epi,
-                          cudaStream_t s) {
-  using C = TmaCfg<NT>;
-  static_assert(C::STAGES >= 2 && C::SMEM <= tma::SMEM_MAX, "shared memory");
-  static_assert(C::BOX_ROWS <= 256 && C::PLANE / 16 < (1 << 14), "TMA box, descriptor LBO");
-  CUtensorMap head, src;
-  cudaError_t e = tensor_map(&head, g.head, g.head_ch, g.head_stride, g.B, g.H, g.W, C::BOX_ROWS);
-  if (e == cudaSuccess) e = tensor_map(&src, g.src, g.ctot, g.ctot, g.B, g.H, g.W, C::BOX_ROWS);
-  if (e != cudaSuccess) return e;
-  // The attribute and the SM count belong to the current device: read once
-  // per instantiation and device (on every call past the table's devices).
+template <class...> struct KernelTag {};
+
+// The persistent grid for `tiles` tiles of `kernel`: one block per SM, at
+// most one per tile.  The shared-memory attribute and the SM count belong
+// to the current device: read once per Tag (one per kernel instantiation)
+// and device (on every call past the table's devices).
+template <class Tag, class Kernel>
+cudaError_t persistent_grid(Kernel kernel, int smem, long long tiles, int* grid) {
   constexpr int kDevices = 64;
   static int sms[kDevices] = {};
   int dev = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
   int n_sm = dev < kDevices ? sms[dev] : 0;
   if (n_sm == 0) {
-    e = cudaFuncSetAttribute(conv_tma<NT, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::SMEM);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
     if (dev < kDevices) sms[dev] = n_sm;
   }
-  const long long tiles = (long long)((g.W + tma::TW - 1) / tma::TW) *
-                          ((g.H + C::TH - 1) / C::TH) * g.B * n_groups(g.cout);
-  const int grid = (int)(tiles < n_sm ? tiles : n_sm);
+  *grid = (int)(tiles < n_sm ? tiles : n_sm);
+  return cudaSuccess;
+}
+
+template <int NT, class Epi>
+cudaError_t launch_tma_nt(const Geom& g, const __nv_bfloat16* w, const Epi& epi,
+                          cudaStream_t s) {
+  using C = TmaCfg<NT>;
+  CUtensorMap head, src;
+  cudaError_t e = tensor_map(&head, g.head, g.head_ch, g.head_stride, g.B, g.H, g.W, C::BOX_ROWS);
+  if (e == cudaSuccess) e = tensor_map(&src, g.src, g.ctot, g.ctot, g.B, g.H, g.W, C::BOX_ROWS);
+  int grid = 0;
+  if (e == cudaSuccess)
+    e = persistent_grid<KernelTag<C, Epi>>(conv_tma<NT, Epi>, C::SMEM, TileWalk(g, C::TH).count,
+                                           &grid);
+  if (e != cudaSuccess) return e;
   conv_tma<NT, Epi><<<grid, tma::THREADS, C::SMEM, s>>>(head, src, g, w, epi);
   return cudaGetLastError();
 }

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from innfer_tpu_torch.config.defaults import get_network_config
+from innfer_tpu_torch.models import common as C
 from innfer_tpu_torch.models import convert_state, get_network
 from innfer_tpu_torch.nn import functional as F
 from innfer_tpu_torch.nn.functional import true_fp32
@@ -640,8 +641,8 @@ def _force_tail(monkeypatch, form):
     if form in "ab":
         monkeypatch.setattr(C, "phase_tail_ok", lambda *a, **k: False)
     if form == "d":
-        monkeypatch.setattr(C, "phase_hr_conv", lambda params, p, key, r=2: PH.phase_conv3x3_dense(
-            p, params[f"{key}.weight"], params.get(f"{key}.bias"), r))
+        monkeypatch.setattr(C, "phase_hr_conv", lambda params, p, key, r=2, act=None: F.act(
+            act, PH.phase_conv3x3_dense(p, params[f"{key}.weight"], params.get(f"{key}.bias"), r)))
 
 
 @pytest.mark.gpu
@@ -650,7 +651,12 @@ def _force_tail(monkeypatch, form):
 def test_tail_forms_card_match_cpu(cuda_device, monkeypatch, form, dtype):
     """Each tail form (a plain, b collapsed upconv, c phase tail, d dense
     phase conv) of a 4x ESRGAN tail on the card against the same form on
-    the CPU: fp32 >= 80 dB (a TF32 leak gives about 60), bf16 >= 40 dB."""
+    the CPU: fp32 >= 80 dB (a TF32 leak gives about 60), bf16 >= 40 dB.
+    In bf16 the card runs the tail's 2x convs on the tail conv kernel: both
+    collapsed upsample blocks in form b, the upsample block, the phase
+    tail's first conv, its HR conv and conv_last in form c, the first two in
+    form d (the dense HR convs stay plain); fp32 never."""
+    from innfer_tpu_torch.ops.tail_conv import tail_conv
     g = np.random.default_rng(6)
     nf = 32
     state = {}
@@ -662,15 +668,123 @@ def test_tail_forms_card_match_cpu(cuda_device, monkeypatch, form, dtype):
     h = torch.from_numpy(g.standard_normal((2, 30, 44, nf)).astype(np.float32) * 0.5)
     _force_tail(monkeypatch, form)
     outs = []
+    before = tail_conv.launches
     for dev in (cuda_device, torch.device("cpu")):
         params = convert_state(model, state, param_dtype=dtype, device=dev)
         with torch.no_grad():
             outs.append(model.apply_tail(params, h.to(dev, dtype)).float().cpu())
+    fused = {"a": 0, "b": 2, "c": 4, "d": 2}[form] if dtype == torch.bfloat16 else 0
+    assert tail_conv.launches - before == fused
     mse = (outs[0] - outs[1]).double().square().mean().item()
     peak = max(1.0, outs[1].abs().max().item())
     db = math.inf if mse == 0 else 10 * math.log10(peak ** 2 / mse)
     assert outs[0].shape == (2, 120, 176, 3)
     assert db >= (80 if dtype == torch.float32 else 40)
+
+
+def _within_one_ulp(out, ref):
+    """Every value within one bf16 ulp of the plain version's, plus 1e-3 of
+    its peak for values near 0 (the fp32 sums differ in order only, so a
+    rounding may flip), and nearly all equal."""
+    out, ref = out.float(), ref.float()
+    assert out.shape == ref.shape
+    tol = 2 ** -7 * ref.abs() + 1e-3 * max(1.0, ref.abs().max().item())
+    assert ((out - ref).abs() <= tol).all().item()
+    assert (out == ref).float().mean().item() >= 0.97
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,b,hg,wg,nf,cp,act", [
+    ("phase", 1, 9, 70, 64, 64, "leakyrelu"), ("phase", 4, 5, 33, 64, 3, None),
+    ("phase", 1, 17, 130, 32, 32, "relu"), ("phase", 4, 3, 7, 16, 3, None),
+    ("upconv", 4, 11, 67, 64, 64, "leakyrelu"), ("upconv", 1, 6, 5, 32, 32, None),
+    ("pixelshuffle", 1, 7, 9, 64, 3, "lrelu"), ("pixelshuffle", 4, 13, 65, 16, 16, None)])
+def test_tail_conv_matches_plain_on_card(cuda_device, mode, b, hg, wg, nf, cp, act):
+    """The tail conv kernel against the plain composition on the card at
+    ragged sizes (odd grids, several 64-column tiles or part of one, B of 1
+    and 4), in every mode and layout it has: the HR conv on the phase-major
+    grid, the collapsed upconv and the pixelshuffle conv written phase-major
+    and pixel-shuffled, cout 3 to 64 a phase, act None, LeakyReLU, ReLU."""
+    from innfer_tpu_torch.nn import phase as PH
+    from innfer_tpu_torch.ops import tail_conv as TC
+
+    g = torch.Generator().manual_seed(hg * wg + nf + cp)
+    b_ = torch.randn(cp if mode != "pixelshuffle" else 4 * cp, generator=g) * 0.1
+    if mode == "phase":
+        x = torch.randn(b, hg, wg, 4 * nf, generator=g).to(cuda_device, torch.bfloat16)
+        w = (torch.randn(cp, nf, 3, 3, generator=g) / (3 * nf ** 0.5)).to(cuda_device,
+                                                                         torch.bfloat16)
+        packed = TC.pack_phase(w, b_.to(cuda_device))
+        before = TC.tail_conv.launches
+        out = TC.tail_conv(x, packed, act=act, layout="phase")
+        ref = F.act(act, PH.phase_conv3x3(x, w, b_.to(cuda_device)))
+        _within_one_ulp(out, ref)
+        _within_one_ulp(TC.tail_conv(x, packed, act=act, layout="shuffle"),
+                        PH.phase_shuffle_out(ref))
+        assert TC.tail_conv.launches - before == 2
+        return
+    x = torch.randn(b, hg, wg, nf, generator=g).to(cuda_device, torch.bfloat16)
+    if mode == "upconv":
+        w = (torch.randn(cp, nf, 3, 3, generator=g) / (3 * nf ** 0.5)).to(torch.bfloat16)
+        w2 = C.collapse_upconv_weight(w, None, 2)[0]
+        wpm, bpm = PH.cmajor_to_phase_major(w2), PH.phase_bias(b_)
+        bc = b_.repeat_interleave(4)
+    else:
+        w2 = (torch.randn(4 * cp, nf, 3, 3, generator=g) / (3 * nf ** 0.5)).to(torch.bfloat16)
+        wpm, bpm, bc = PH.cmajor_to_phase_major(w2), PH.cmajor_bias_to_phase_major(b_), b_
+    packed = TC.pack_plain(wpm.to(cuda_device), bpm.to(cuda_device))
+    w2, bc = w2.to(cuda_device), bc.to(cuda_device)
+    _within_one_ulp(TC.tail_conv(x, packed, act=act, layout="shuffle"),
+                    F.act(act, F.pixel_shuffle(F.conv2d(x, w2, bc, padding=1), 2)))
+    _within_one_ulp(TC.tail_conv(x, packed, act=act, layout="phase"),
+                    F.act(act, F.conv2d(x, wpm.to(cuda_device), bpm.to(cuda_device),
+                                        padding=1)))
+
+
+@pytest.mark.gpu
+def test_esrgan_x4_tail_runs_only_the_tail_conv_on_card(cuda_device):
+    """The bf16 4x ESRGAN tail (nf 64) on the card under the profiler: the
+    tracer counts every conv of the tail as fused, and the device runs the
+    tail conv kernel four times and the final 3-channel shuffle, with no
+    cuDNN conv, no concatenation, no pixel-shuffle copy and no separate bias
+    or activation pass."""
+    from innfer_tpu_torch import observability as obs
+    from innfer_tpu_torch.ops.tail_conv import tail_conv
+
+    g = np.random.default_rng(8)
+    nf = 64
+    state = {}
+    for key, o in (("model.3", nf), ("model.6", nf), ("model.8", nf), ("model.10", 3)):
+        std = math.sqrt(3.0 / (9 * nf))
+        state[f"{key}.weight"] = torch.from_numpy(g.uniform(-std, std, (o, nf, 3, 3)).astype(np.float32))
+        state[f"{key}.bias"] = torch.from_numpy(g.uniform(-0.01, 0.01, o).astype(np.float32))
+    model = get_network(get_network_config({"type": "esrgan", "nb": 1, "nf": nf}, 4))
+    params = convert_state(model, state, param_dtype=torch.bfloat16, device=cuda_device)
+    h = torch.from_numpy(g.standard_normal((2, 36, 70, nf)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    with torch.no_grad():
+        model.apply_tail(params, h)  # packs the weights
+        torch.cuda.synchronize()
+        obs.reset()
+        before = tail_conv.launches
+        try:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                out = model.apply_tail(params, h)
+                torch.cuda.synchronize()
+            counters = obs.summary()["counters"]
+        finally:
+            obs.reset()
+    assert out.shape == (2, 144, 280, 3)
+    assert counters["tail_convs"] == counters["tail_convs_fused"] == 4
+    assert tail_conv.launches - before == 4
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "Memcpy" not in e.name
+               and "Memset" not in e.name]
+    assert sum("conv_tail" in k for k in kernels) == 4, kernels
+    others = [k for k in kernels if "conv_tail" not in k]
+    assert len(others) <= 1, others
 
 
 @pytest.mark.gpu

@@ -240,8 +240,8 @@ def test_tracing_is_off_outside_a_profiler(tracer):
 def test_frame_spans_form_the_tabled_tree(tracer, kind):
     """Under a CPU profiler: each frame's spans form the tabled tree (no
     download: a CPU output needs no copy), share the frame's request id, lie
-    on the profiler's timeline, and the counters equal the plan's pixels;
-    the output is bitwise the untraced one."""
+    on the profiler's timeline, and the counters equal the plan's pixels
+    and the tail's convs; the output is bitwise the untraced one."""
     sess, hw = _session(kind)
     imgs = [_image(hw, s) for s in (1, 2)]
     plain = [sess.run_image(im) for im in imgs]
@@ -270,8 +270,11 @@ def test_frame_spans_form_the_tabled_tree(tracer, kind):
     names = {e.name() for e in prof.profiler.kineto_results.events()}
     assert set(want) <= names
     s = tracer.summary()
-    assert s["counters"] == {"tile_px": 2 * plan.n_tiles * plan.tile_h * plan.tile_w,
-                             "tiled_px": 2 * hw[0] * hw[1]}
+    counters = {"tile_px": 2 * plan.n_tiles * plan.tile_h * plan.tile_w,
+                "tiled_px": 2 * hw[0] * hw[1]}
+    if kind == "rrdb_hybrid":  # the x2 phase tail's three convs a group, none fused on the CPU
+        counters["tail_convs"] = 2 * groups * 3
+    assert s["counters"] == counters
     assert s["spans"]["innfer.frame"]["count"] == 2
     assert all(row["device_ms"] is None and row["host_ms"] >= 0 for row in s["spans"].values())
 
@@ -318,7 +321,8 @@ def test_summary_self_time_arithmetic():
 
 
 READERS = ("trunk_ms.frames", "tile_groups_ms.frames", "tiling_self_ms.frames",
-           "frame_io_ms.frames", "enqueue_ms.frames", "tile_px_ratio.frames")
+           "frame_io_ms.frames", "enqueue_ms.frames", "tile_px_ratio.frames",
+           "tail_fused_share.frames")
 
 
 def _reader(name):
@@ -347,6 +351,8 @@ def test_span_readers(tracer, monkeypatch, name):
         plan = sess.stages[0].runner.plan_for(*hw)
         assert got == pytest.approx(plan.n_tiles * plan.tile_h * plan.tile_w / (hw[0] * hw[1]),
                                     rel=1e-12)
+    elif name == "tail_fused_share.frames":
+        assert got == 0.0  # the CPU counts the tail's convs and fuses none
     else:
         assert got is None
 
@@ -361,11 +367,12 @@ def test_span_readers(tracer, monkeypatch, name):
                       "innfer.postprocess": row(4.0, 8.0, 8.0),
                       "innfer.download": row(2.0, 4.0, 4.0),
                       "innfer.fetch": row(60.0, None, None)},
-            "counters": {"tile_px": 9, "tiled_px": 6}}
+            "counters": {"tile_px": 9, "tiled_px": 6, "tail_convs": 8, "tail_convs_fused": 6}}
     monkeypatch.setattr(tracer, "summary", lambda: fake)
     assert read(ctx) == {"trunk_ms.frames": 60.0, "tile_groups_ms.frames": 16.0,
                          "tiling_self_ms.frames": 4.0, "frame_io_ms.frames": 6.0,
-                         "enqueue_ms.frames": 85.0, "tile_px_ratio.frames": 1.5}[name]
+                         "enqueue_ms.frames": 85.0, "tile_px_ratio.frames": 1.5,
+                         "tail_fused_share.frames": 0.75}[name]
 
 
 def test_directory_spans_carry_each_images_request(tracer, tmp_path, monkeypatch):

@@ -62,9 +62,9 @@ def force(monkeypatch, form):
     if form in "ab":
         monkeypatch.setattr(C, "phase_tail_ok", lambda *a, **k: False)
     if form == "d":
-        def dense(params, p, key, r=2):
-            return PH.phase_conv3x3_dense(p, params[f"{key}.weight"],
-                                          params.get(f"{key}.bias"), r)
+        def dense(params, p, key, r=2, act=None):
+            return F.act(act, PH.phase_conv3x3_dense(p, params[f"{key}.weight"],
+                                                     params.get(f"{key}.bias"), r))
 
         monkeypatch.setattr(C, "phase_hr_conv", dense)
 
