@@ -5,9 +5,8 @@ import re
 
 import pytest
 
-from .conftest import DIR_CELLS, ROOT, with_dir_cells
+from .conftest import BENCH, DIR_CELLS, ROOT, tiny, with_dir_cells
 
-BENCH = json.load(open(osp.join(ROOT, "BENCHMARK.json")))
 # the rules hold for the file as it is and with the directory cells added
 BOTH = pytest.mark.parametrize("B", [BENCH, with_dir_cells(BENCH)], ids=["as_is", "dir_cells_added"])
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
@@ -94,8 +93,10 @@ def test_every_named_file_is_there(w):
     cfg = json.load(open(osp.join(ROOT, cfg_entry["file"])))
     b = osp.join(ROOT, "innbench")
     for path in (f"traffic/{w['traffic']}.json", f"limits/{w['name']}.json",
-                 f"reference/{cfg['arch']}.py", f"flops/{cfg['arch']}.py"):
+                 f"reference/{cfg['arch']}.py", f"flops/{cfg['arch']}.py",
+                 f"tests/tiny/arch/{cfg['arch']}.json", f"tests/tiny/traffic/{w['traffic']}.json"):
         assert osp.isfile(osp.join(b, path)), path
+    assert set(tiny(ROOT, "arch", cfg["arch"])) == {"model", "control", "reference"}
     for m in B["per_layer"]:
         if w["name"] in m["workloads"]:
             assert osp.isfile(osp.join(b, "metrics", m["name"] + ".py"))
@@ -107,6 +108,7 @@ def test_the_files_of_the_directory_cells_are_there(w):
     they have been read on the card."""
     b = osp.join(ROOT, "innbench")
     assert osp.isfile(osp.join(b, "traffic", w["traffic"] + ".json"))
+    assert osp.isfile(osp.join(b, "tests", "tiny", "traffic", w["traffic"] + ".json"))
     for m in DIR_CELLS["per_layer"]:
         if w["name"] in m["workloads"]:
             assert osp.isfile(osp.join(b, "metrics", m["name"] + ".py"))

@@ -10,9 +10,10 @@ import torch
 
 from innbench import harness, traffic as T
 
-from .conftest import ROOT
+from .conftest import BENCH, ROOT, control_cases
 
-CASES = [("esrgan_x4.frames540", 40, 64), ("cyclegan_r9.frames1080", 96, 128)]
+# every cell of BENCHMARK.json, at its architecture's control size
+CASES = control_cases(BENCH)
 
 
 def _readings(cell, h, w, device, tmp_path):
@@ -42,6 +43,7 @@ def _readings(cell, h, w, device, tmp_path):
 
 
 def _check(cell, program, control):
+    print(cell.name, "program", program, "control", control, "limits", cell.limits)
     assert all(program[n] <= limit for n, limit in cell.limits.items()), program
     assert any(control[n] > limit for n, limit in cell.limits.items()), control
 
@@ -53,7 +55,7 @@ def test_program_holds_and_control_fails(name, h, w, tmp_path):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", [c[0] for c in CASES])
+@pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]])
 def test_on_the_card_at_the_cells_size(name, tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")

@@ -6,14 +6,15 @@ tile), an answer altered where it is produced.  (No cell spans chips, so
 no exchange can be left out.)  The runs skip the look for a card.  On the
 CPU they run at tiny sizes in fp32, where the unbroken program agrees with
 the reference; on the card (``gpu``) at each frame cell's own size and
-precision, on three seeds."""
+precision, on three seeds.  The frame cells are read from BENCHMARK.json;
+on the CPU those whose architecture and traffic have tiny cuts."""
 import numpy as np
 import pytest
 import torch
 
 from innbench import harness
 
-from .conftest import ROOT
+from .conftest import BENCH, ROOT, frame_cells, tiny_frame_cells
 
 
 def _unchanged(monkeypatch):
@@ -72,8 +73,7 @@ def _altered(monkeypatch):
 
 FAULTS = {"none": None, "unchanged": _unchanged, "half_batch": _half_batch,
           "half_tiles": _half_tiles, "altered": _altered}
-FRAMES = ("esrgan_x4.frames540", "cyclegan_r9.frames1080")
-CASES = [(c, f) for c in FRAMES for f in ("none", "unchanged", "altered")] + \
+CASES = [(c, f) for c in tiny_frame_cells(BENCH) for f in ("none", "unchanged", "altered")] + \
         [("cyclegan_r9.dir_camera", f) for f in ("none", "unchanged", "half_batch", "altered")]
 
 
@@ -97,7 +97,7 @@ def test_fault_turns_correct_false(tiny_root, monkeypatch, cell, fault):
                    for v in line["checks"].values())
 
 
-GPU_CASES = [(c, f, s) for c in FRAMES for f in ("unchanged", "half_tiles", "altered")
+GPU_CASES = [(c, f, s) for c in frame_cells(BENCH) for f in ("unchanged", "half_tiles", "altered")
              for s in (2**31 + 11, 2**31 + 12, 2**31 + 13)]
 
 

@@ -1,24 +1,32 @@
 """Each plain reference at a tiny width against the program's plain path on
 the CPU, in fp32, through the program's own session and tiling: the
 reference imports nothing of the program, so agreement here means it cuts
-the image as the program does."""
-import json
+the image as the program does.  Every configuration of BENCHMARK.json runs
+the cases of its architecture's tiny cut (``tests/tiny/arch/<arch>.json``)."""
 import os.path as osp
 
 import numpy as np
 import pytest
 import torch
 
-from innbench import traffic as T
-from innbench.reference import plan as P, resnet_generator as G, rrdbnet as R
+from innbench import harness, traffic as T
+from innbench.reference import plan as P, resnet_generator as G
 
-from .conftest import ROOT, TINY_MODEL
+from .conftest import BENCH, ROOT, config, reference_cases, tiny
+
+CASES = reference_cases(BENCH)
 
 
 def _cfg(name):
-    cfg = json.load(open(osp.join(ROOT, "innbench", "configs", name + ".json")))
-    cfg["model"].update(TINY_MODEL[cfg["arch"]])
+    cfg = config(ROOT, BENCH, name)
+    cfg["model"].update(tiny(ROOT, "arch", cfg["arch"])["model"])
     return cfg
+
+
+def _ref(cfg):
+    arch = cfg["arch"]
+    return harness.load_module(osp.join(ROOT, "innbench", "reference", arch + ".py"),
+                               "innbench_reference_" + arch)
 
 
 def _session(tmp_path, cfg, ref_mod, seed=3):
@@ -44,44 +52,39 @@ def _close(a, b):
     assert d.max() <= 1 and (d > 0).mean() < 1e-3, (d.max(), (d > 0).mean())
 
 
-@pytest.mark.parametrize("h,w", [(24, 40), (70, 300)])
-def test_rrdbnet_auto_grid(tmp_path, h, w):
-    cfg = _cfg("esrgan_x4")
-    sess, state = _session(tmp_path, cfg, R)
+@pytest.mark.parametrize("name,h,w,card", CASES,
+                         ids=[f"{c}-{h}x{w}" + ("-card" if card else "") for c, h, w, card in CASES])
+def test_reference_matches_the_program(tmp_path, monkeypatch, name, h, w, card):
+    """``card``: the runner's mode forced as on the card (for ESRGAN the
+    whole-image trunk on the padded canvas and the tiled tail)."""
+    from innfer_tpu_torch.tiling.engine import TiledRunner
+
+    cfg = _cfg(name)
+    ref = _ref(cfg)
+    sess, state = _session(tmp_path, cfg, ref)
+    if card:
+        orig = TiledRunner.mode_for
+        monkeypatch.setattr(TiledRunner, "mode_for",
+                            lambda self, h, w, on_cuda: orig(self, h, w, True))
     rgb = _img(h, w)
     with torch.no_grad():
         got = sess.run_image(np.ascontiguousarray(rgb[..., ::-1]))[..., ::-1]
-    _close(got, R.infer(state, rgb, model=cfg["model"], session=cfg["session"], mode="auto"))
+    mode, cpu_mode = (ref.modes(cfg["model"], cfg["session"], [(h, w)], on_cuda=c,
+                                budget=None)[0] for c in (card, False))
+    assert sess.stages[0].runner.last_mode == mode
+    assert card is (mode != cpu_mode)   # a card case runs a mode the CPU does not take
+    _close(got, ref.infer(state, rgb, model=cfg["model"], session=cfg["session"], mode=mode))
 
 
-def test_rrdbnet_hybrid(tmp_path, monkeypatch):
-    """The card's path: whole-image trunk on the padded canvas, tiled tail."""
-    from innfer_tpu_torch.tiling.engine import TiledRunner
-
-    cfg = _cfg("esrgan_x4")
-    sess, state = _session(tmp_path, cfg, R)
-    orig = TiledRunner.mode_for
-    monkeypatch.setattr(TiledRunner, "mode_for", lambda self, h, w, on_cuda: orig(self, h, w, True))
-    rgb = _img(70, 600)
-    with torch.no_grad():
-        got = sess.run_image(np.ascontiguousarray(rgb[..., ::-1]))[..., ::-1]
-    assert sess.stages[0].runner.last_mode == "hybrid"
-    mode = R.modes(cfg["model"], cfg["session"], [(70, 600)], on_cuda=True, budget=None)[0]
-    assert mode == "hybrid"
-    _close(got, R.infer(state, rgb, model=cfg["model"], session=cfg["session"], mode=mode))
-
-
-def test_resnet_generator_tile_grid(tmp_path):
+def test_resnet_generator_tile_grid():
+    """Instance norm takes its statistics per tile: the whole image differs
+    from the tile grid's, so the reference has to cut as the program does."""
     cfg = _cfg("cyclegan_r9")
-    sess, state = _session(tmp_path, cfg, G)
+    state = G.make_state(cfg["model"], 3, "cpu")
     rgb = _img(90, 300)
-    with torch.no_grad():
-        got = sess.run_image(np.ascontiguousarray(rgb[..., ::-1]))[..., ::-1]
-    ref = G.infer(state, rgb, model=cfg["model"], session=cfg["session"], mode="auto")
-    _close(got, ref)
-    # instance norm per tile: the whole image differs
-    whole = G.infer(state, rgb, model=cfg["model"], session=cfg["session"], mode="whole")
-    assert np.abs(whole.astype(int) - ref.astype(int)).max() > 1
+    tiled, whole = (G.infer(state, rgb, model=cfg["model"], session=cfg["session"], mode=m)
+                    for m in ("auto", "whole"))
+    assert np.abs(whole.astype(int) - tiled.astype(int)).max() > 1
 
 
 def test_resnet_generator_directory_groups(tmp_path):
