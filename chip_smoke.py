@@ -18,18 +18,19 @@ the final result line):
               and whether zlib.h and jpeglib.h are on g++'s include path.
               It fails where g++ and zlib.h are present and the library
               still does not build or load;
-  2. build    the three kernel libraries (ops/csrc/rdb.cu and
-              tail_conv.cu with ops/csrc/conv3x3_tma.cuh, resnet_block.cu;
-              all with the shared ops/csrc/conv3x3_tc.cuh) built at once
-              with nvcc (sm_90a); for each, ptxas' registers and spills of
-              every tensor-core conv instantiation (rdb's conv_tma,
-              resnet_block's conv_wgmma, one per N tile, tail_conv's
-              conv_tail, one per N tile and mode) with its dynamic shared
-              memory, and the counts of HGMMA (wgmma) and UTMALDG (TMA
-              tensor load) instructions in the library's SASS (cuobjdump):
-              HGMMA must be above 0 in all, UTMALDG in rdb's and
-              tail_conv's, and no conv_tma or conv_tail may spill (but
-              the 16 B of tail_conv's HR conv, TMA_SPILL_B);
+  2. build    the four kernel libraries (ops/csrc/rdb.cu, tail_conv.cu
+              and dilated_block.cu with ops/csrc/conv3x3_tma.cuh,
+              resnet_block.cu; all with the shared ops/csrc/conv3x3_tc.cuh)
+              built at once with nvcc (sm_90a); for each, ptxas' registers
+              and spills of every tensor-core conv instantiation (rdb's
+              conv_tma, resnet_block's conv_wgmma, one per N tile,
+              tail_conv's conv_tail, one per N tile and mode,
+              dilated_block's dilated_block_c1 and dilated_block_rates) with
+              its dynamic shared memory, and the counts of HGMMA (wgmma)
+              and UTMALDG (TMA tensor load) instructions in the library's
+              SASS (cuobjdump): HGMMA must be above 0 in all, UTMALDG in
+              all but resnet_block's, and no TMA conv may spill (but the
+              16 B of tail_conv's HR conv, TMA_SPILL_B);
   3. kernel   fused_rdb against rdb_reference at nf=64, gc=32 on
               (1, 64, 1920, 64) strips, bf16 and fp32, with and without the
               ESRGAN+ plus; then timed with CUDA events at the main-path
@@ -47,7 +48,14 @@ the final result line):
               first conv written phase-major, the HR conv and conv_last on
               the phase-major grid), each within one bf16 ulp of its plain
               composition (at least 97% equal), timed beside its bound,
-              the plain composition and cuDNN's bf16 conv alone;
+              the plain composition and cuDNN's bf16 conv alone.  Then
+              [dilated]: fused_dilated_block (ops/dilated_block.py, PPON's
+              _ResBlock_32, nf=64) at the PPON cell's trunk shape (1, 576,
+              960, 64), plain and with the RRBlock's residual, within one
+              bf16 ulp of the model's plain bf16 path (at least 99.9%
+              equal), timed beside its bound, that plain path and cuDNN's
+              bf16 convs of the block alone, with each of its three
+              launches' device ms (torch.profiler);
   4. main     a seeded synthetic 4x ESRGAN (nb=23, nf=64, gc=32, upconv)
               saved with torch.save, and seeded 540x960 and 1080x1920
               PNGs, run through InferenceSession.process in bf16 with
@@ -114,9 +122,11 @@ the final result line):
               image between CUDA events, wall, u8 PSNR of bf16 against the
               fp32 session (>= 30 dB) and fp32 on the card against fp32
               on the CPU on a 64x64 crop (>= 80 dB); in bf16 tail_conv
-              launches a multiple of one forward's (SRResNet's and PPON's
-              2x upsample blocks and phase tail; none for PAN) and no
-              other kernel runs, none in fp32;
+              launches a multiple of one forward's (SRResNet's 4: its 2x
+              upsample block and phase tail; PPON's 12, that in each of
+              its three branches; none for PAN), fused_dilated_block
+              launches a multiple of PPON's 84 a forward (its auto run
+              goes hybrid), and no other kernel runs, none in fp32;
               for PAN the auto plan's tile and the attention scores' bytes
               per tile group.  Then the ESRGAN variants (batch norm CNA and
               NAC, instance norm, prelu, swish; nf=64, gc=32, nb=2) fp32
@@ -303,11 +313,12 @@ RB_PSNR_DB = 55.0                 # bf16 fused_resnet_block vs its plain version
 NB = 23                           # RRDBs of the main-path ESRGAN
 CG_BLOCKS, CG_NGF = 9, 64         # CycleGAN resnet_9blocks at its published width
 ZOO_BF16_DB, ZOO_FP32_DB = 30.0, 80.0   # bf16 vs fp32 session (u8); fp32 card vs CPU
-LIBS = ("rdb", "resnet_block", "tail_conv")
+LIBS = ("rdb", "resnet_block", "tail_conv", "dilated_block")
 # Spill bytes a TMA conv instantiation may have: none, but for tail_conv's
 # HR conv (N=256 a phase-major tile of 1 row), whose 16 B were there when
 # it was first measured on the H100; more fails the build phase.
 TMA_SPILL_B = {"conv_tail N=256 cpad=64 phase": 16}
+DILATED_SHAPE = (1, 576, 960, 64)   # the PPON cell's hybrid trunk canvas, nf 64
 
 
 def fail(msg: str) -> None:
@@ -486,13 +497,19 @@ def sass_count(path: str, opcode: str) -> int:
 def conv_lines(lib, kernels: dict) -> tuple:
     """Per tensor-core conv instantiation of a library's ptxas report
     (conv_tma for rdb, conv_wgmma for resnet_block, conv_tail for
-    tail_conv): its registers, spill bytes and dynamic shared memory; and
-    the other kernels.  The TMA convs' spills past TMA_SPILL_B are summed."""
+    tail_conv, dilated_block_c1 and _rates for dilated_block): its registers, spill
+    bytes and dynamic shared memory; and the other kernels.  The TMA convs'
+    spills past TMA_SPILL_B are summed."""
     lines, spills, others = [], 0, []
     for func, k in kernels.items():
         m = re.search(r"conv_(tma|wgmma)ILi(\d+)E", func)
         t = re.search(r"conv_tailILi(\d+)ELi(\d+)ELb([01])E", func)
-        if m:
+        d = re.search(r"dilated_block_(c1|rates)", func)
+        if d:
+            kind = "dilated"
+            smem = lib.innfer_dilated_block_smem_bytes(0 if d.group(1) == "c1" else 8)
+            label = f"dilated_block_{d.group(1)}"
+        elif m:
             kind, nt = m.group(1), int(m.group(2))
             smem = (lib.innfer_conv_tma_smem_bytes if kind == "tma"
                     else lib.innfer_conv_tc_smem_bytes)(nt)
@@ -507,7 +524,7 @@ def conv_lines(lib, kernels: dict) -> tuple:
             continue
         lines.append((label, f"{label}: {k['regs']} regs, {k['spill']} B spilled, "
                              f"{smem} B dynamic smem"))
-        if kind in ("tma", "tail"):
+        if kind in ("tma", "tail", "dilated"):
             spills += max(0, k["spill"] - TMA_SPILL_B.get(label, 0))
     return [t for _, t in sorted(lines)], spills, others
 
@@ -538,18 +555,19 @@ def phase_build():
                      f"TMA_SPILL_B")
         if hgmma == 0:
             fail(f"{where} holds no HGMMA instruction: the bf16 conv is not on the tensor cores")
-        if name in ("rdb", "tail_conv") and utmaldg == 0:
+        if name != "resnet_block" and utmaldg == 0:
             fail(f"{where} holds no UTMALDG instruction: its convs do not load through TMA")
     print(f"[build] {len(LIBS)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def kernel_counters():
+    from innfer_tpu_torch.ops.dilated_block import fused_dilated_block
     from innfer_tpu_torch.ops.rdb import fused_rdb, fused_rdb_padded, fused_rrdb_trunk
     from innfer_tpu_torch.ops.resnet_block import fused_resnet_block
     from innfer_tpu_torch.ops.tail_conv import tail_conv
 
     return {f.__name__: f for f in (fused_rdb, fused_rdb_padded, fused_rrdb_trunk,
-                                    fused_resnet_block, tail_conv)}
+                                    fused_resnet_block, tail_conv, fused_dilated_block)}
 
 
 def reset_counts() -> None:
@@ -733,6 +751,95 @@ def phase_tail_conv(dev):
               f"{100 * equal:.3f}% equal (within one bf16 ulp)", flush=True)
     del lr, x2, ph, x4
     return rows
+
+
+def phase_dilated(dev, shape=DILATED_SHAPE):
+    """fused_dilated_block (ops/dilated_block.py) at the PPON cell's trunk
+    shape: against the model's plain bf16 path (models/ppon.py's
+    composition, off the kernel) within one bf16 ulp and at least 99.9%
+    equal, plain and with the RRBlock's residual; then timed with CUDA
+    events beside its bound (the block's operations at the unpadded rows of
+    the cell's frame, the input and output once and the weights), the
+    plain path and cuDNN's bf16 convs of the block alone (c1, the eight
+    dilated convs, c2: no epilogue, no cascade, no concat); and each of its
+    launches' device ms (torch.profiler)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as TF
+
+    from innfer_tpu_torch.models import ppon as PP
+    from innfer_tpu_torch.models.base import ParamDict, cast_params
+    from innfer_tpu_torch.ops import dilated_block as DB
+    from innfer_tpu_torch.tools import synth_params as SP
+
+    state = SP.ppon_state(nb=1, nf=NF, scale=4, seed=97)
+    params = cast_params(ParamDict({k: torch.from_numpy(np.asarray(v)).to(dev)
+                                    for k, v in state.items()}), torch.bfloat16)
+    prefix = "CFEM.1.sub.0.RB3"
+    w, b = PP._block_params(params, prefix)
+    packed = DB.pack_block(w, b)
+    g = torch.Generator().manual_seed(96)
+    x = torch.randn(*shape, generator=g).to(dev, torch.bfloat16)
+    res = torch.randn(*shape, generator=g).to(dev, torch.bfloat16)
+    kern = lambda r=None: DB.fused_dilated_block(x, w, b, res=r, packed=packed)  # noqa: E731
+    orig = DB.fusable
+
+    def plain(r=None):
+        DB.fusable = lambda *a, **k: False
+        try:
+            return PP._res_block_32(params, x, prefix, res=r)
+        finally:
+            DB.fusable = orig
+
+    for r in (None, res):
+        before = DB.fused_dilated_block.launches
+        out, ref = kern(r), plain(r)
+        torch.cuda.synchronize()
+        if DB.fused_dilated_block.launches != before + 1:
+            fail("fused_dilated_block: the wrapper did not launch the kernel")
+        err = (out.float() - ref.float()).abs().max().item()
+        equal = (out == ref).float().mean().item()
+        if not within_one_ulp(out, ref) or equal < 0.999:
+            fail(f"fused_dilated_block (res {r is not None}) is not within one bf16 ulp of the "
+                 f"plain path at >= 99.9% equal: max_abs {err:.3g}, {100 * equal:.3f}% equal")
+        print(f"[dilated] check {tuple(shape)} res {r is not None}: max_abs {err:.3g}, "
+              f"{100 * equal:.3f}% equal to the plain bf16 path (within one bf16 ulp)",
+              flush=True)
+    nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
+    cat = torch.randn(shape[0], shape[1], shape[2], 4 * NF, generator=g).to(dev, torch.bfloat16)
+    wb = [t.to(torch.bfloat16) for t in w]
+    bb = [t.to(torch.bfloat16) for t in b]
+
+    def library():
+        h = TF.conv2d(nchw(x), wb[0], bb[0], padding=1)
+        for r in range(1, 9):
+            TF.conv2d(h, wb[r], bb[r], padding=r, dilation=r)
+        TF.conv2d(nchw(cat), wb[9], bb[9])
+
+    ms = cuda_ms(kern, reps=20)
+    plain_ms = cuda_ms(plain, reps=3)
+    library_ms = cuda_ms(library, reps=10)
+    h_px = min(shape[1], 540) * shape[2] * shape[0]   # the cell's unpadded rows
+    macs = 9 * NF * NF + 8 * 9 * NF * NF // 2 + 4 * NF * NF
+    flops, nbytes = 2 * macs * h_px, 2 * 2 * NF * h_px + 2 * macs + 4 * 6 * NF
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           **bound(flops, nbytes)}
+    row.update(rates(flops, ms, row["bound_ms"]))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            kern()
+        torch.cuda.synchronize()
+    per = [(e.key, e.device_time_total / 1e3 / e.count) for e in prof.key_averages()
+           if e.device_time_total > 0 and "dilated_block_" in e.key]
+    print(f"[dilated] fused_dilated_block {tuple(shape)}: kernel {ms:.3f} ms, bound "
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']}; {flops / 1e12:.3f} TFLOP, "
+          f"{nbytes / 1e9:.3f} GB at the cell's 540 rows), plain {plain_ms:.3f} ms, cuDNN bf16 "
+          f"convs alone {library_ms:.3f} ms, {row['tflops']:.1f} TFLOP/s, "
+          f"{100 * row['bound_share']:.1f}% of the bound; launches: "
+          + "; ".join(f"{re.sub(r'^void |[(].*$', '', n)[-48:]} {t:.4f} ms" for n, t in per),
+          flush=True)
+    del x, res, cat
+    return row
 
 
 def phase_main(dev, work):
@@ -1206,7 +1313,8 @@ def phase_chain(dev, work, main):
         del os.environ["INNFER_RDB_CHAIN"]
     n = main["n_images"]
     want = {"fused_rdb": 0, "fused_rdb_padded": NB * 3 * n, "fused_rrdb_trunk": n,
-            "fused_resnet_block": 0, "tail_conv": 4 * main["tail_groups"]}
+            "fused_resnet_block": 0, "tail_conv": 4 * main["tail_groups"],
+            "fused_dilated_block": 0}
     if counts != want:
         fail(f"INNFER_RDB_CHAIN=1 session launches {counts}; expected {want}")
     dbs = []
@@ -1443,6 +1551,7 @@ def phase_cyclegan(dev, work):
     finally:
         resnet_model.fused_resnet_block = block_fn
     want = {"fused_rdb": 0, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0, "tail_conv": 0,
+            "fused_dilated_block": 0,
             "fused_resnet_block": CG_BLOCKS * sum(g[0] for g in groups.values())}
     if runner.last_mode != "auto":
         fail(f"tile_mode auto ran {runner.last_mode!r} for the CycleGAN")
@@ -1702,20 +1811,27 @@ def phase_zoo(dev, work, main):
             fail(f"auto-detection read the {name} checkpoint as {model.name} {model.cfg}")
         plans = {n: runner.plan_for(h, w, on_cuda=True) for n, (h, w) in main["sizes"].items()}
         out16, out32 = (os.path.join(work, f"zoo_{name}_{t}") for t in ("bf16", "fp32"))
-        # the tail conv kernel's launches in one bf16 forward of a crop: those
-        # of SRResNet's and PPON's 2x upsample blocks and phase tail, none of
-        # PAN's own; the session launches a multiple of them, and nothing else
+        # the kernels' launches in one bf16 forward of a crop: the tail conv's
+        # (SRResNet's 2x upsample block and phase tail, 4; PPON's, in each
+        # of its three branches, 12; none of PAN's own) and PPON's 84
+        # blocks; the session launches a multiple of them, and nothing else
         reset_counts()
         model.apply(sess.stages[0].params, np2tensor(crop, dtype=torch.bfloat16, device=dev))
-        per_fwd = read_counts()["tail_conv"]
+        fwd = read_counts()
+        per_fwd, dil_fwd = fwd["tail_conv"], fwd["fused_dilated_block"]
         written, wall, ms, counts = run_session(torch, sess, main["in_dir"], out16)
         mode = runner.last_mode
-        tail = counts.pop("tail_conv")
-        if any(counts.values()) or (per_fwd == 0) != (name == "pan") or (
-                tail % max(per_fwd, 1) or (tail == 0) != (per_fwd == 0)):
-            fail(f"{name} launched {counts}, tail_conv {tail} ({per_fwd} a forward)")
+        tail, dil = counts.pop("tail_conv"), counts.pop("fused_dilated_block")
+        want = {"srresnet": (4, 0), "pan": (0, 0), "ppon": (12, 84)}[name]
+        if any(counts.values()) or (per_fwd, dil_fwd) != want or any(
+                n % max(f, 1) or (n == 0) != (f == 0)
+                for n, f in ((tail, per_fwd), (dil, dil_fwd))):
+            fail(f"{name} launched {counts}, tail_conv {tail} ({per_fwd} a forward), "
+                 f"fused_dilated_block {dil} ({dil_fwd} a forward); want {want} a forward")
         if name == "srresnet" and mode == "hybrid":
             fail("SRResNet's auto run went hybrid: its trunk runs no port kernel")
+        if name == "ppon" and mode != "hybrid":
+            fail(f"PPON's auto run took {mode}: its trunk runs the block kernel, so hybrid")
         sess32 = InferenceSession(ckpt, compute_dtype=torch.float32, tile_mode="auto")
         params32 = sess32.stages[0].params
         written32, wall32, ms32, _ = run_session(torch, sess32, main["in_dir"], out32)
@@ -1745,13 +1861,14 @@ def phase_zoo(dev, work, main):
               f"{wall32:.3f} s; bf16 vs fp32 u8 PSNR {', '.join(f'{d:.1f}' for d in dbs)} dB "
               f"(bar {ZOO_BF16_DB}); fp32 card vs CPU (1,64,64,3) {db32:.1f} dB "
               f"(bar {ZOO_FP32_DB}); tail_conv launches {tail} ({per_fwd} a forward), "
-              f"other kernels 0{extra}", flush=True)
+              f"fused_dilated_block {dil} ({dil_fwd} a forward), other kernels 0{extra}",
+              flush=True)
         if min(dbs) < ZOO_BF16_DB:
             fail(f"{name}: bf16 vs fp32 PSNR {min(dbs):.1f} dB < {ZOO_BF16_DB}")
         if db32 < ZOO_FP32_DB:
             fail(f"{name}: fp32 card vs CPU PSNR {db32:.1f} dB < {ZOO_FP32_DB}")
         rows[name] = {"mode": mode, "ms": ms, "wall": wall, "ms32": ms32, "dbs": dbs,
-                      "db32": db32}
+                      "db32": db32, "dilated_launches": dil}
 
     x = np2tensor(crop, device=dev)
     variants = {"bn": ("batch", "CNA", "leakyrelu"), "nac_bn": ("batch", "NAC", "leakyrelu"),
@@ -2244,7 +2361,8 @@ def phase_batch(dev, work):
     cg_ckpt = os.path.join(work, "cyclegan9_synth.pth")
     whole_p = select_presets("resnet_9blocks")
     whole_p.chop = False
-    want = {"fused_rdb": 0, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0, "tail_conv": 0}
+    want = {"fused_rdb": 0, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0, "tail_conv": 0,
+            "fused_dilated_block": 0}
     cg = {}
     for dt in (bf16, fp32):
         sess = InferenceSession(cg_ckpt, arch="resnet_9blocks", compute_dtype=dt,
@@ -2917,7 +3035,8 @@ def phase_parallel(dev, work, main, halo_shape=(1, 1088, 1920, NF)):
           f"max|ref| {f32.abs().max().item():.3g}) against the same tile_batch; session wall "
           f"{dp_wall:.3f} s", flush=True)
     if dp_counts != {"fused_rdb": 69 * slices, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0,
-                     "fused_resnet_block": 0, "tail_conv": 4 * slices}:
+                     "fused_resnet_block": 0, "tail_conv": 4 * slices,
+                     "fused_dilated_block": 0}:
         fail(f"dp tiles launched {dp_counts}, expected 69 x {slices} fused_rdb and 4 x "
              f"{slices} tail_conv (a forward's tail per slice)")
     if share < 0.999 or db < MIN_PSNR_DB or err32 > 1e-5 or err_tb > 5e-4 or len(dp_written) != 1:
@@ -3171,13 +3290,14 @@ def main() -> int:
     with torch.no_grad():
         timing = phase_kernel(dev)
         tail_rows = phase_tail_conv(dev)
+        dil_row = phase_dilated(dev)
         with tempfile.TemporaryDirectory() as work:
             main = phase_main(dev, work)
             phase_tail(dev, work, main)
             pad, trunk = phase_chain(dev, work, main)
             rb = phase_resnet_block(dev)
             rb["launches"] = phase_cyclegan(dev, work)
-            phase_zoo(dev, work, main)
+            dil_row["launches"] = phase_zoo(dev, work, main)["ppon"]["dilated_launches"]
             phase_ts(dev, work, main)
             phase_i2i(dev, work, main)
             phase_batch(dev, work)
@@ -3203,7 +3323,11 @@ def main() -> int:
     ] + [{"name": f"tail_conv.{conv}", "route": "cuda",
           "source": "innfer_tpu_torch/ops/csrc/tail_conv.cu",
           "replaces": "XLA's convs of innfer_tpu/models/common.py's tail (no TPU kernel)",
-          "launches": main["tail_groups"], **row} for conv, row in tail_rows.items()]
+          "launches": main["tail_groups"], **row} for conv, row in tail_rows.items()] + [
+        {"name": "fused_dilated_block", "route": "cuda",
+         "source": "innfer_tpu_torch/ops/csrc/dilated_block.cu",
+         "replaces": "XLA's convs of innfer_tpu/models/ppon.py::_res_block_32 (no TPU kernel)",
+         **dil_row}]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops", "bound_share")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))

@@ -16,20 +16,64 @@ convs (rates 1..8) over a shared lrelu(c1(x)), sums them cascading,
 concatenates, fuses with a 1x1 conv and adds with a 0.2 residual.  The
 residual scales, the cascading sums and ``alpha`` work in the activation
 dtype, as the JAX package's ``jnp.asarray(.., x.dtype)`` does.
+
+The hybrid split: ``apply_trunk`` runs CFEM, SFEM and PFEM and returns
+their three 64-channel maps as one 192-channel tensor; ``apply_tail`` runs
+the three reconstruction branches on a tile of it and sums them, which is
+``apply``'s out_p.  Each branch is ESRGAN's x4 tail: its upsample blocks
+LR-collapsed and its last block with the HR convs in phase space where the
+predicates of ``models/common.py`` say; the three branches are summed at
+full resolution.  A block runs on the hand-written kernel of
+``ops/dilated_block.py`` wherever ``dilated_block.fusable`` holds (a bf16
+CUDA tensor, nf 64, unsharded weights); elsewhere the plain composition
+below runs (the CPU, fp32, tp-sharded weights).  The tracer's counters
+``dilated_blocks`` (every block) and ``dilated_blocks_fused`` (those on
+the kernel) say which.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from innfer_tpu_torch.models import common as C
 from innfer_tpu_torch.models.base import ModelDef
 from innfer_tpu_torch.nn import functional as F
+from innfer_tpu_torch.observability import count
+from innfer_tpu_torch.ops import dilated_block as DB
 from innfer_tpu_torch.ops.rdb import res_scale
 
+_CONVS = ("c1", *(f"d{r}" for r in range(1, 9)), "c2")
 
-def _res_block_32(params, x: torch.Tensor, prefix: str) -> torch.Tensor:
+
+def _block_params(params, prefix: str):
+    return ([params.get(f"{prefix}.{n}.weight") for n in _CONVS],
+            [params.get(f"{prefix}.{n}.bias") for n in _CONVS])
+
+
+def _packed(params, prefix: str, x: torch.Tensor) -> Optional[DB.PackedBlock]:
+    """The kernel layout of one block's weights, cached on the ParamDict per
+    device (None for a plain dict)."""
+    cache = getattr(params, "cache", None)
+    if cache is None:
+        return None
+    key = ("dilated_block", prefix, x.device)
+    if key not in cache:
+        cache[key] = DB.pack_block(*_block_params(params, prefix))
+    return cache[key]
+
+
+def _res_block_32(params, x: torch.Tensor, prefix: str,
+                  res: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One block; with ``res`` (the RRBlock's input, for its last block)
+    also the RRBlock's residual ``out * 0.2 + res``."""
+    count("dilated_blocks", 1)
+    weights, biases = _block_params(params, prefix)
+    if DB.fusable(x, weights, biases):
+        count("dilated_blocks_fused", 1)
+        return DB.fused_dilated_block(x, weights, biases, res=res,
+                                      packed=_packed(params, prefix, x))
+
     def conv(name, t, pad, dil):
         return F.conv2d(t, params[f"{prefix}.{name}.weight"],
                         params.get(f"{prefix}.{name}.bias"), padding=pad, dilation=dil)
@@ -41,14 +85,15 @@ def _res_block_32(params, x: torch.Tensor, prefix: str) -> torch.Tensor:
         acc = acc + conv(f"d{r}", h, r, r)
         sums.append(acc)
     out2 = conv("c2", F.leaky_relu(torch.cat(sums, dim=-1), 0.2), 0, 1)
-    return x + out2 * res_scale(x.dtype)
+    out = x + out2 * res_scale(x.dtype)
+    return out if res is None else out * res_scale(x.dtype) + res
 
 
 def _rr_block(params, x: torch.Tensor, prefix: str) -> torch.Tensor:
     out = x
-    for name in ("RB1", "RB2", "RB3"):
+    for name in ("RB1", "RB2"):
         out = _res_block_32(params, out, f"{prefix}.{name}")
-    return out * res_scale(x.dtype) + x
+    return _res_block_32(params, out, f"{prefix}.RB3", res=x)
 
 
 def build(cfg: Dict[str, Any]) -> ModelDef:
@@ -61,32 +106,62 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
     # recon modules: [n_up x (Upsample, conv, act)] + HR0 conv + act + HR1 conv
     up_convs = [3 * i + 1 for i in range(n_up)]
     hr0 = 3 * n_up
+    mods = ("CRM", "SRM", "PRM")
 
-    def recon(params, x, mod: str):
-        h = x
-        for ci in up_convs:
-            h = C.apply_upsample_block(params, h, f"{mod}.{ci}", mode="upconv",
-                                       factor=factor, act_type=act_type)
-        return C.apply_hr_convs(params, h, mod, hr0, act_type)
-
-    def apply(params, x: torch.Tensor):
+    def trunk(params, x: torch.Tensor):
         fea = C.conv3x3(params, x, "CFEM.0")
         t = fea
         for i in range(nb):
             t = _rr_block(params, t, f"CFEM.1.sub.{i}")
         out_cfem = fea + C.conv3x3(params, t, f"CFEM.1.sub.{nb}")
-        out_c = recon(params, out_cfem, "CRM")
-
         out_sfem = out_cfem
         for i in range(2):
             out_sfem = _rr_block(params, out_sfem, f"SFEM.{i}")
-        out_s = recon(params, out_sfem, "SRM") + out_c
-
         out_pfem = out_sfem
         for i in range(2):
             out_pfem = _rr_block(params, out_pfem, f"PFEM.{i}")
-        out_p = torch.tensor(alpha, dtype=x.dtype) * recon(params, out_pfem, "PRM") + out_s
+        return out_cfem, out_sfem, out_pfem
+
+    def branches(params, feats):
+        """(out_c, out_s, out_p) at full resolution."""
+        phase = bool(up_convs) and all(
+            C.phase_tail_ok(params, f"{m}.{up_convs[-1]}", factor=factor, up_mode="upconv",
+                            act_type=act_type, finalact=None) for m in mods)
+
+        def recon(h, mod: str):
+            for ci in (up_convs[:-1] if phase else up_convs):
+                h = C.apply_upsample_block(params, h, f"{mod}.{ci}", mode="upconv",
+                                           factor=factor, act_type=act_type)
+            if phase:
+                return C.apply_phase_tail(params, h, up_key=f"{mod}.{up_convs[-1]}",
+                                          up_mode="upconv", act_type=act_type, hr0=hr0,
+                                          finalact=None, out_prefix=mod)
+            return C.apply_hr_convs(params, h, mod, hr0, act_type)
+
+        out_c = recon(feats[0], "CRM")
+        out_s = recon(feats[1], "SRM") + out_c
+        out_p = torch.tensor(alpha, dtype=feats[2].dtype) * recon(feats[2], "PRM") + out_s
         return out_c, out_s, out_p
 
+    def apply_trunk(params, x: torch.Tensor) -> torch.Tensor:
+        """CFEM, SFEM and PFEM: the whole LR-resolution part of the model
+        (81% of its operations), run untiled by the hybrid engine; their
+        three maps as one (B, H, W, 3 nf) tensor."""
+        return torch.cat(trunk(params, x), dim=-1)
+
+    def apply_tail(params, h: torch.Tensor) -> torch.Tensor:
+        """The three branches on a tile of the trunk's maps, summed: out_p."""
+        return branches(params, torch.chunk(h, 3, dim=-1))[2]
+
+    def apply(params, x: torch.Tensor):
+        return branches(params, trunk(params, x))
+
     return ModelDef(name="ppon", cfg=dict(cfg), apply=apply, scale=upscale,
+                    apply_trunk=apply_trunk, apply_tail=apply_tail,
+                    # each branch is ESRGAN's upsampling tail: 4 LR px cover it
+                    tail_halo=4,
+                    # at nf 64 (the block kernel's channel counts) auto goes
+                    # hybrid on the card: bf16 runs the kernel, fp32 the plain
+                    # composition on the whole image, exactly
+                    trunk_kernel=int(cfg.get("nf", 64)) == DB.NF,
                     output_index=2)

@@ -143,6 +143,9 @@ SIGNATURES = {
     "tail_conv": {
         "innfer_tail_conv": ([_vp] * 4 + [_i] * 9 + [_vp], _i),
     },
+    "dilated_block": {
+        "innfer_dilated_block": ([_vp] * 9 + [_i] * 3 + [_vp], _i),
+    },
 }
 
 
@@ -177,6 +180,11 @@ def resnet_block_library() -> ctypes.CDLL:
 def tail_conv_library() -> ctypes.CDLL:
     """The SR tail's conv library (``csrc/tail_conv.cu``)."""
     return library("tail_conv")
+
+
+def dilated_block_library() -> ctypes.CDLL:
+    """PPON's dilated multi-rate block (``csrc/dilated_block.cu``)."""
+    return library("dilated_block")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1044,3 +1044,104 @@ def test_frame_spans_on_card(cuda_device, tmp_path, monkeypatch):
                    if name != "innfer.fetch")
     finally:
         obs.reset()
+
+
+def _ppon_block(dev, seed=5):
+    """One nf-64 PPON block's (c1, d1..d8, c2) weights and fp32 biases, bf16
+    on ``dev``, and the model's params and prefix for its plain path."""
+    from innfer_tpu_torch.models import ppon as PP
+    from innfer_tpu_torch.models.base import ParamDict, cast_params
+    from innfer_tpu_torch.tools import synth_params as SP
+
+    state = SP.ppon_state(nb=1, nf=64, scale=4, seed=seed)
+    params = cast_params(ParamDict({k: torch.from_numpy(np.asarray(v)).to(dev)
+                                    for k, v in state.items()}), torch.bfloat16)
+    prefix = "CFEM.1.sub.0.RB1"
+    return params, prefix, PP._block_params(params, prefix)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 576, 960, 64), (2, 37, 101, 64), (1, 9, 70, 64)])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_dilated_block_matches_plain_on_card(cuda_device, monkeypatch, shape, with_res):
+    """fused_dilated_block at the PPON cell's trunk shape and at ragged ones
+    (rows not a multiple of the 8- and 16-row tiles, part of a 64-column
+    tile, B of 2), plain and with the RRBlock's residual, against the
+    model's plain bf16 path (cuDNN's TF32 tensor-core convs through the
+    bias route) and against its plain composition with exact (float64)
+    sums: every value within one bf16 ulp of both, >= 99.9% of values equal
+    to the plain path, and at least as many equal to the exact sums as the
+    plain path has.  Tensor-core MMAs add their products without rounding
+    to nearest, so the kernel and cuDNN's tensor-core convs share an error
+    that exact sums lack: on an H100 the plain path itself matches the
+    exact composition in 99.77-99.99% of values, below 99.9% at the cell's
+    shape."""
+    from innfer_tpu_torch.models import ppon as PP
+    from innfer_tpu_torch.ops import dilated_block as DB
+
+    params, prefix, (w, b) = _ppon_block(cuda_device)
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(*shape, generator=g).to(cuda_device, torch.bfloat16)
+    res = torch.randn(*shape, generator=g).to(cuda_device, torch.bfloat16) if with_res else None
+    before = DB.fused_dilated_block.launches
+    with torch.no_grad():
+        out = DB.fused_dilated_block(x, w, b, res=res, packed=DB.pack_block(w, b))
+        ref = DB.dilated_block_reference(x, w, b, res=res, acc=torch.float64)
+        monkeypatch.setattr(DB, "fusable", lambda *a, **k: False)
+        plain = PP._res_block_32(params, x, prefix, res=res)
+    torch.cuda.synchronize()
+    assert DB.fused_dilated_block.launches - before == 1
+    share = lambda a, c: (a == c).float().mean().item()  # noqa: E731
+    for want in (plain, ref):
+        _within_one_ulp(out, want)
+    assert share(out, plain) >= 0.999
+    assert share(out, ref) >= share(plain, ref)
+
+
+@pytest.mark.gpu
+def test_ppon_runs_its_blocks_and_tails_on_the_kernels_on_card(cuda_device):
+    """The bf16 nf-64 PPON through the runner's auto mode on the card: it goes
+    hybrid, the tracer counts every block and every tail conv as fused,
+    and the device runs the block kernel's launches and the tail conv's,
+    with no cuDNN conv but the trunk's first and LR convs."""
+    from innfer_tpu_torch import observability as obs
+    from innfer_tpu_torch.ops import dilated_block as DB
+    from innfer_tpu_torch.ops.tail_conv import tail_conv
+    from innfer_tpu_torch.tiling.engine import TiledRunner
+    from innfer_tpu_torch.tools import synth_params as SP
+
+    model = get_network(get_network_config({"type": "ppon", "nb": 1, "nf": 64}, 4))
+    params = convert_state(model, SP.ppon_state(nb=1, nf=64, scale=4, seed=9),
+                           param_dtype=torch.bfloat16, device=cuda_device)
+    runner = TiledRunner(model.apply, model.scale, mode="auto", trunk_fn=model.apply_trunk,
+                         tail_fn=model.apply_tail, tail_halo=model.tail_halo,
+                         trunk_kernel=model.trunk_kernel, output_index=model.output_index,
+                         compute_dtype=torch.bfloat16)
+    x = torch.rand(1, 40, 300, 3, device=cuda_device)
+    with torch.no_grad():
+        runner(params, x)
+        torch.cuda.synchronize()
+        obs.reset()
+        blocks, tails = DB.fused_dilated_block.launches, tail_conv.launches
+        try:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                out = runner(params, x)
+                torch.cuda.synchronize()
+            counters = obs.summary()["counters"]
+        finally:
+            obs.reset()
+    assert runner.last_mode == "hybrid"
+    assert out.shape == (1, 160, 1200, 3) and torch.isfinite(out).all()
+    assert counters["dilated_blocks"] == counters["dilated_blocks_fused"] == 15
+    assert counters["tail_convs"] == counters["tail_convs_fused"] == 12
+    assert DB.fused_dilated_block.launches - blocks == 15
+    groups = tail_conv.launches - tails
+    assert groups % 12 == 0 and groups > 0
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("dilated_block_" in k for k in kernels) == 15 * 3   # c1, the rates, c2
+    convs = [k for k in kernels if "conv" in k.lower() and "dilated_block_" not in k
+             and "conv_tail" not in k]
+    assert len(convs) <= 4, convs

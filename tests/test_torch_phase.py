@@ -267,11 +267,11 @@ def test_each_tail_form_matches_the_plain_tail_bf16(monkeypatch, case):
 
 
 @pytest.mark.parametrize("case", [("esrgan", 4, "c"), ("esrgan", 2, "c"), ("srresnet", 4, "c"),
-                                  ("ppon", 4, "b"), ("esrgan", 3, "b")])
+                                  ("ppon", 4, "c"), ("esrgan", 3, "b")])
 def test_default_predicates_run_the_adopted_form(monkeypatch, case):
     """The H100 A/B adopted collapsed upconv blocks and the phase tail
-    (form c) wherever they are eligible: PPON's recon modules and scale 3
-    only collapse (form b)."""
+    (form c) wherever they are eligible, PPON's three branches included:
+    scale 3 only collapses (form b)."""
     family, scale, adopted = case
     model, params = _model(family, scale, nb=1, nf=16)
     x = torch.from_numpy(np.random.default_rng(4).random((1, 16, 20, 3), np.float32))
