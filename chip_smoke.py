@@ -55,7 +55,10 @@ the final result line):
               bf16 ulp of the model's plain bf16 path (at least 99.9%
               equal), timed beside its bound, that plain path and cuDNN's
               bf16 convs of the block alone, with each of its three
-              launches' device ms (torch.profiler);
+              launches' device ms (torch.profiler), TFLOP/s and share of
+              its own bound (its operations, or the bytes it reads and
+              writes), the rates kernel's registers and spill, and the
+              bytes it stages into shared memory a call;
   4. main     a seeded synthetic 4x ESRGAN (nb=23, nf=64, gc=32, upconv)
               saved with torch.save, and seeded 540x960 and 1080x1920
               PNGs, run through InferenceSession.process in bf16 with
@@ -291,6 +294,7 @@ launches made to compare a kernel with its plain version are not counted.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import math
@@ -529,12 +533,15 @@ def conv_lines(lib, kernels: dict) -> tuple:
     return [t for _, t in sorted(lines)], spills, others
 
 
-def phase_build():
+def phase_build() -> dict:
+    """Build the libraries at once and report each; returns each built
+    library's ptxas report per kernel (``ptxas_kernels``)."""
     from innfer_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBS)) as pool:  # one nvcc per source, at once
         built = dict(zip(LIBS, pool.map(_build.build, LIBS)))
+    reports = {}
     for name, b in built.items():
         where = os.path.relpath(b.path, HERE)
         hgmma = sass_count(b.path, "HGMMA")
@@ -543,7 +550,8 @@ def phase_build():
         if not b.ptxas:
             print(f"[build] {where} was already built; {counts}", flush=True)
         else:
-            lines, spills, others = conv_lines(_build.library(name), ptxas_kernels(b.ptxas))
+            reports[name] = ptxas_kernels(b.ptxas)
+            lines, spills, others = conv_lines(_build.library(name), reports[name])
             rest = (f"registers {min(k['regs'] for k in others)}-"
                     f"{max(k['regs'] for k in others)}, spills "
                     f"{sum(k['spill'] for k in others)} B" if others else "")
@@ -558,6 +566,7 @@ def phase_build():
         if name != "resnet_block" and utmaldg == 0:
             fail(f"{where} holds no UTMALDG instruction: its convs do not load through TMA")
     print(f"[build] {len(LIBS)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
+    return reports
 
 
 def kernel_counters():
@@ -753,7 +762,7 @@ def phase_tail_conv(dev):
     return rows
 
 
-def phase_dilated(dev, shape=DILATED_SHAPE):
+def phase_dilated(dev, kernels=None, shape=DILATED_SHAPE):
     """fused_dilated_block (ops/dilated_block.py) at the PPON cell's trunk
     shape: against the model's plain bf16 path (models/ppon.py's
     composition, off the kernel) within one bf16 ulp and at least 99.9%
@@ -762,7 +771,12 @@ def phase_dilated(dev, shape=DILATED_SHAPE):
     the cell's frame, the input and output once and the weights), the
     plain path and cuDNN's bf16 convs of the block alone (c1, the eight
     dilated convs, c2: no epilogue, no cascade, no concat); and each of its
-    launches' device ms (torch.profiler)."""
+    launches' device ms (torch.profiler) beside that launch's own bound at
+    the same rows (its operations, or the bytes it reads and writes once:
+    c1 x, h and its weights; the rates h, the 256-channel workspace and
+    theirs; c2 the workspace, x, its output and weights).  ``kernels``:
+    the dilated_block library's ptxas report (``ptxas_kernels``), for the
+    rates kernel's registers and spill."""
     import numpy as np
     import torch
     import torch.nn.functional as TF
@@ -835,9 +849,35 @@ def phase_dilated(dev, shape=DILATED_SHAPE):
           f"{row['bound_ms']:.3f} ms ({row['bound_by']}; {flops / 1e12:.3f} TFLOP, "
           f"{nbytes / 1e9:.3f} GB at the cell's 540 rows), plain {plain_ms:.3f} ms, cuDNN bf16 "
           f"convs alone {library_ms:.3f} ms, {row['tflops']:.1f} TFLOP/s, "
-          f"{100 * row['bound_share']:.1f}% of the bound; launches: "
-          + "; ".join(f"{re.sub(r'^void |[(].*$', '', n)[-48:]} {t:.4f} ms" for n, t in per),
-          flush=True)
+          f"{100 * row['bound_share']:.1f}% of the bound", flush=True)
+    w_bytes = {"c1": 2 * 9 * NF * NF, "rates": 2 * 8 * 9 * NF * GC, "fuse": 2 * 4 * NF * NF}
+    work = {"c1": (9 * NF * NF, 2 * (NF + NF)),            # MACs, bytes a pixel
+            "rates": (8 * 9 * NF * GC, 2 * (NF + 4 * NF)),
+            "fuse": (4 * NF * NF, 2 * (4 * NF + NF + NF))}
+    if len(per) != 3 or any(sum(f"dilated_block_{k}" in n for n, _ in per) != 1 for k in work):
+        fail(f"[dilated] want one dilated_block_c1, _rates and _fuse launch a call, got "
+             f"{[n for n, _ in per]}")
+    for k, (macs_px, bytes_px) in work.items():
+        t = next(t for n, t in per if f"dilated_block_{k}" in n)
+        f_k = 2 * macs_px * h_px
+        b_k = bound(f_k, bytes_px * h_px + w_bytes[k])
+        r_k = rates(f_k, t, b_k["bound_ms"])
+        print(f"[dilated] dilated_block_{k}: {t:.4f} ms, bound {b_k['bound_ms']:.4f} ms "
+              f"({b_k['bound_by']}), {r_k['tflops']:.1f} TFLOP/s, "
+              f"{100 * r_k['bound_share']:.1f}% of its bound", flush=True)
+    from innfer_tpu_torch.ops import _build
+
+    lib = _build.dilated_block_library()
+    lib.innfer_dilated_block_staged_bytes.argtypes = [ctypes.c_int] * 4
+    lib.innfer_dilated_block_staged_bytes.restype = ctypes.c_longlong
+    halo, wts = [lib.innfer_dilated_block_staged_bytes(shape[0], shape[1], shape[2], part)
+                 for part in (0, 1)]
+    rk = next((v for f, v in (kernels or {}).items() if "dilated_block_rates" in f), None)
+    print(f"[dilated] dilated_block_rates: "
+          + (f"{rk['regs']} registers, {rk['spill']} B spilled; " if rk else
+             "no ptxas report (library already built); ")
+          + f"stages a call {halo / 1e9:.4f} GB of halo in {halo / (2 * NF) / 1e6:.3f} M "
+          f"128-byte box rows and {wts / 1e9:.4f} GB of weights", flush=True)
     del x, res, cat
     return row
 
@@ -3286,11 +3326,11 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    phase_build()
+    reports = phase_build()
     with torch.no_grad():
         timing = phase_kernel(dev)
         tail_rows = phase_tail_conv(dev)
-        dil_row = phase_dilated(dev)
+        dil_row = phase_dilated(dev, reports.get("dilated_block", {}))
         with tempfile.TemporaryDirectory() as work:
             main = phase_main(dev, work)
             phase_tail(dev, work, main)

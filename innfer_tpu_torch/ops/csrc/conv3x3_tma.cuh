@@ -5,9 +5,9 @@
 // padding needs per-pixel addresses that a TMA box cannot give.  The
 // pipeline's pieces (init_ring, produce, Ring, TileWalk, tap_mmas,
 // persistent_grid) are also tail_conv.cu's, which adds its own tap loop and
-// epilogue to them, and dilated_block.cu's, whose convs take the dilation
-// as a compile-time parameter (DIL of TmaCfg and tap_mmas: a halo of DIL
-// pixels each side, tap offsets times DIL; 1 compiles the code above).
+// epilogue to them, and dilated_block.cu's: its c1 runs conv_tma's tile loop,
+// its dilated convs keep the ring (init_ring, Ring) for their weights alone
+// and stage their halo their own way (a swizzled box of all 64 channels).
 //
 // The GEMM is conv_wgmma's: M = output pixels, N = all cout output
 // channels of one N tile, K = 9 taps x cin in 16-channel chunks.  A tile is
@@ -72,7 +72,9 @@
 // multicasting the weights over a cluster of two, A from registers (each
 // N = 32 wgmma reads 3 KB of shared memory per 32K MACs), and wider TMA
 // rows (a 16-byte box row is the slowest case of TMA; a swizzled 64-channel
-// layout would need 128-byte rows, which 16-row halos leave no room for).
+// layout would need 128-byte rows, which 16-row halos leave no room for:
+// dilated_block.cu's dilated convs take them, on one halo their eight convs
+// share).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -97,16 +99,12 @@ __host__ __device__ constexpr int tma_rows(int nt) {  // R: rows per consumer
 }
 
 // A stage ring of tiles of NT accumulator columns whose chunks carry weight
-// blocks BN columns wide, one per tap (BN = NT for conv_tma), for a 3x3
-// conv of dilation DIL: the halo reaches DIL pixels past the tile on each
-// side (dilated_block.cu's convs, which stage their own boxes; DIL = 1
-// everywhere else), R = ROWS output rows a consumer warpgroup.
-template <int NT, int BN = NT, int DIL = 1, int ROWS = tma_rows(NT)> struct TmaCfg {
-  static constexpr int R = ROWS;
+// blocks BN columns wide, one per tap (BN = NT for conv_tma).
+template <int NT, int BN = NT> struct TmaCfg {
+  static constexpr int R = tma_rows(NT);
   static constexpr int TH = tma::CONSUMERS * R;              // output rows per tile
-  static constexpr int HALO_W = tma::TW + 2 * DIL;           // halo columns
-  static constexpr int BOX_ROWS = TH + 2 * DIL;
-  static constexpr int BOX_BYTES = BOX_ROWS * HALO_W * 16;   // one 8-channel plane
+  static constexpr int BOX_ROWS = TH + 2;
+  static constexpr int BOX_BYTES = BOX_ROWS * tma::HP_W * 16;  // one 8-channel plane
   static constexpr int PLANE = (BOX_BYTES + 127) / 128 * 128;  // TMA wants 128-byte dsts
   static constexpr int A_BYTES = 2 * PLANE;
   static constexpr int B_BYTES = 9 * KC * BN * 2;            // one 16-channel chunk's weights
@@ -117,8 +115,7 @@ template <int NT, int BN = NT, int DIL = 1, int ROWS = tma_rows(NT)> struct TmaC
   static constexpr int SMEM = 128 + STAGES * STAGE + BARS;   // 128: alignment slack
   static constexpr uint32_t TX = 2 * BOX_BYTES + B_BYTES;    // bytes landing per stage
   static_assert(STAGES >= 2 && SMEM <= tma::SMEM_MAX, "shared memory");
-  static_assert(BOX_ROWS <= 256 && HALO_W <= 256 && PLANE / 16 < (1 << 14),
-                "TMA box, descriptor LBO");
+  static_assert(BOX_ROWS <= 256 && PLANE / 16 < (1 << 14), "TMA box, descriptor LBO");
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -282,19 +279,17 @@ template <class C> struct Ring {
 
 // One chunk's 9 R wgmmas of the plain 3x3 conv: tap (dy, dx) of output row
 // row0 + m reads the halo at pixel offset (row0 + m + dy) * 66 + dx of the
-// stage at a; its weights are the tap's [half][NT][8] block at b.  At
-// dilation DIL the tap reads (row0 + m + DIL dy) * (64 + 2 DIL) + DIL dx.
-template <int NT, int R, int DIL = 1>
+// stage at a; its weights are the tap's [half][NT][8] block at b.
+template <int NT, int R>
 __device__ __forceinline__ void tap_mmas(float (&acc)[R][NT / 2], uint32_t a, uint32_t b,
                                          int row0, int plane) {
-  constexpr int HALO_W = tma::TW + 2 * DIL;
 #pragma unroll
   for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3 * DIL, dx = tap % 3 * DIL;
+    const int dy = tap / 3, dx = tap % 3;
     const uint64_t db = smem_desc(b + tap * KC * NT * 2, NT * 16, 128);
 #pragma unroll
     for (int m = 0; m < R; ++m) {
-      const uint64_t da = smem_desc(a + ((row0 + m + dy) * HALO_W + dx) * 16, plane, 128);
+      const uint64_t da = smem_desc(a + ((row0 + m + dy) * tma::HP_W + dx) * 16, plane, 128);
       wgmma<NT>(acc[m], da, db);
     }
   }
@@ -413,16 +408,15 @@ inline EncodeTiledFn encode_tiled() {
 
 // The 4-d map (channel, column, row, image) of a bf16 NHWC tensor with
 // `ch` channels at pixel stride `stride` elements, read in boxes of 8
-// channels x `cols` columns (66 but for a dilated conv) x `rows` rows with
-// zero fill.
+// channels x 66 columns x `rows` rows with zero fill.
 inline cudaError_t tensor_map(CUtensorMap* map, const void* base, int ch, int stride, int B,
-                              int H, int W, int rows, int cols = tma::HP_W) {
+                              int H, int W, int rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t px = (cuuint64_t)stride * 2;
   const cuuint64_t dims[4] = {(cuuint64_t)ch, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {px, px * W, px * W * H};
-  const cuuint32_t box[4] = {8, (cuuint32_t)cols, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {8, (cuuint32_t)tma::HP_W, (cuuint32_t)rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   const CUresult r =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,

@@ -21,24 +21,22 @@
 // 0.208 TFLOP and 0.210 ms per block at 989 TFLOP/s; x in, out and 0.40 MB
 // of weights are 0.133 GB, 0.040 ms at 3.35 TB/s.  Compute-bound.
 //
-// Design: rdb.cu's workspace pattern, three launches a block on
-// conv3x3_tma.cuh's pipeline (init_ring, produce, Ring, TileWalk,
-// tap_mmas, persistent_grid: a TMA producer thread, an mbarrier ring of
-// halo boxes and weight chunks, two wgmma consumer warpgroups, a
-// persistent grid):
-//   * dilated_block_c1: N = 64 on 8-row tiles, its epilogue the bias, one
+// Design: rdb.cu's workspace pattern, three launches a block, each a TMA
+// producer thread, an mbarrier ring, two wgmma consumer warpgroups and a
+// persistent grid (conv3x3_tma.cuh's init_ring, Ring, persistent_grid):
+//   * dilated_block_c1: conv_tma's pipeline and tile loop (produce,
+//     TileWalk, tap_mmas), N = 64 on 8-row tiles, its epilogue the bias, one
 //     rounding and the LeakyReLU, into h (B, H, W, 64);
 //   * dilated_block_rates: the eight dilated convs, N = 32 each, in one
-//     launch.  A tile of 8 rows x 64 columns runs dilations 1..8 in turn
-//     through one stage ring sized for the widest halo; each dilation is
-//     a compile-time parameter of its staging (its own tensor map, a box
-//     of 8 + 2 r rows and 64 + 2 r columns whose zero fill is the conv's
-//     padding) and of its tap offsets (times r).  The running sum stays in
-//     the consumer's registers, as bf16, across the eight; each
-//     dilation's epilogue stores lrelu(s_r), the only form c2 reads, into
-//     its 32-channel slice of a (B, H, W, 256) workspace, while the
-//     producer already stages the next dilation's chunks: the concat
-//     exists only as that workspace;
+//     launch over a halo staged once a tile: 16 x 24 output pixels, their
+//     32 x 40-pixel halo of all 64 channels as one TMA box in 128-byte
+//     swizzled rows, which every dilation's taps address by descriptor
+//     offsets (wgmma blocks of 8 x 8 pixels); only the weights stream,
+//     through a ring of seven 9 KB stages.  The running sum stays in the
+//     consumer's registers, as bf16, across the eight; each dilation's
+//     epilogue stores lrelu(s_r), the only form c2 reads, into its
+//     32-channel slice of a (B, H, W, 256) workspace: the concat exists only
+//     as that workspace;
 //   * dilated_block_fuse: c2, a 1x1 GEMM of K = 256 (memory-bound: it
 //     reads 512 bytes a pixel for 16 K MACs) on mma.sync, A straight from
 //     the workspace into registers; its epilogue applies the 0.2 residual
@@ -49,19 +47,33 @@
 // its weights), so a lane loads and stores 16-byte pieces too.  Each
 // output's sums are taken in one order whichever block computes it.
 //
-// Tried on an H100 (ms a block at (1, 576, 960, 64)): the eight dilated
-// convs as eight launches of conv_tma's tile loop (16-row tiles, each
-// epilogue reading the previous running sum from the workspace): 1.04 ms
-// for the eight, 1.32 for the block; with 8-row tiles, an L2 prefetch of
-// the previous sums or their reads all issued at once: 1.30-1.52.  This
-// design: 1.10 for the eight, 1.37-1.38 for the block (R = 2 rows a
-// warpgroup: 1.18 and 1.45).  The eight N = 32 convs run at 15% of the
-// tensor rate, against c1's 46% at N = 64 on the same pipeline.
+// What the dilated convs stage a call at (1, 576, 960, 64): before, 8 x 64
+// tiles restaging h for each dilation through its own box of 8 + 2 r rows
+// x 64 + 2 r columns in 8-channel (16-byte) box rows: 1.396 GB of halo in
+// 87.2 M box rows and 0.319 GB of weights over 1080 tiles, 1.714 GB.  Now,
+// 1440 tiles of 16 x 24: 0.236 GB of halo in 1.84 M 128-byte box rows and
+// 0.425 GB of weights in 9,216-byte bulk copies, 0.661 GB.
 //
-// Left on the table: keeping h and the 256 channels on chip (c2 fed the
-// dilated convs' results as A fragments, as an attention kernel feeds P:
-// its N = 64 accumulator beside theirs leaves 2 rows a warpgroup, and a
-// halo of 8 each side on 4-row tiles is 5 times the tile in staging).
+// Tried on an H100 (ms of the eight dilated convs a block at (1, 576, 960,
+// 64), CUDA events; outputs bit-equal to the earlier design's): the
+// earlier design, 1.087-1.100; this staging on 16 x 32 tiles (four blocks a
+// warpgroup, three weight stages) 0.534-0.557, on 16 x 16 tiles (eight
+// stages) 0.390-0.399, on 16 x 24 tiles 0.375-0.384 (four or five stages
+// alike); an L2 prefetch of each block's next halo cost 0.014-0.023; the
+// next dilation's first chunk issued before each epilogue (two accumulator
+// sets) 0.381, the same; the halo in two boxes, dilation 1's rows first,
+// and a bottom-up tile walk, both within 0.003.  As diagnostics, skipping
+// the workspace stores saved 0.019 and loading each block's halo once 0.029.
+// The eight convs now run at 43% of the tensor rate; what bounds them is
+// shared memory: an m64n32k16 wgmma reads 2 KB of A and 1 KB of B for 16
+// cycles of tensor work, 192 bytes a cycle against the 128 an SM reads,
+// so at most 67% (0.25 ms).
+//
+// Left on the table: A from registers, shared by the taps whose windows
+// coincide (dilation 8's columns: 5 distinct of 9 a row of taps); the
+// weights multicast over a cluster of two (now the larger half of the
+// bytes staged); c2 fed the dilated convs' results from registers (its N =
+// 64 accumulator beside theirs leaves 2 rows a warpgroup).
 #include "conv3x3_tma.cuh"
 
 namespace {
@@ -172,147 +184,223 @@ dilated_block_c1(const __grid_constant__ CUtensorMap map, Geom g,
 }
 
 // ---------------------------------------------------------------------------
-// The eight dilated convs in one persistent launch.  A tile (TH = 8 rows x
-// 64 columns) runs dilations 1..8 in turn through one stage ring sized for
-// the widest halo (dilation 8: 24 x 80 pixels); the producer stages each
-// dilation's four 16-channel chunks of h through that dilation's tensor map
-// (its own box: 8 + 2 r rows x 64 + 2 r columns), so the ring never drains
-// between dilations.  Each consumer thread keeps its pixels' running sum in
-// registers (bf16, as the plain path holds it) and stores lrelu(s_r), the
-// only form c2 reads, into the workspace's slice r.
-constexpr int RATE_ROWS = 4;
-template <int DIL> using RateCfg = TmaCfg<GC, GC, DIL, RATE_ROWS>;
-using RateRing = RateCfg<RATES>;  // the stage ring, sized for the widest halo
-constexpr int RATE_TH = RateRing::TH;
-constexpr int RATE_W_BYTES = 9 * NF * GC * 2;  // one dilated conv's packed weights
+// The eight dilated convs in one persistent launch, over a halo staged once a
+// tile.  A tile is 16 rows x 24 columns of one image.  Its halo for the widest
+// dilation (8 pixels each side: 32 x 40 pixels, 163,840 bytes) is one TMA box
+// of all 64 channels, each pixel one 128-byte row of the 128-byte swizzled
+// layout, and it stays in shared memory while dilations 1..8 run over it in
+// turn; the box's zero fill is every dilation's padding.  A wgmma's 64 rows
+// are an 8 x 8 block of output pixels: 8 consecutive pixels of an image row
+// are one core matrix (the swizzle atom's 8 rows), the block's 8 image rows
+// lie one halo row (the descriptor's SBO) apart, a tap (dy, dx) of dilation r
+// moves the descriptor's start by r (40 dy + dx) pixels, and a 16-channel
+// chunk is a 32-byte step along the pixel's row.  Consumer warpgroup c
+// computes rows 8 c .. 8 c + 7 of the tile as three blocks (columns 0, 8,
+// 16).  Only the weights stream: each dilation's four chunks (9,216 bytes
+// each) through a ring of the stages the halo leaves room for (seven).  Each
+// consumer thread keeps its pixels' running sum in registers (bf16, as the
+// plain path holds it) and stores lrelu(s_r), the only form c2 reads, into
+// the workspace's slice r.
+constexpr int RATE_TH = 16, RATE_TW = 24;  // tile rows, columns
+constexpr int RATE_BLOCKS = RATE_TW / 8;   // 8 x 8 output blocks a consumer warpgroup
+constexpr int HALO_ROWS = RATE_TH + 2 * RATES, HALO_COLS = RATE_TW + 2 * RATES;
+constexpr int PX_BYTES = NF * 2;           // a staged pixel: one swizzled 128-byte row
+constexpr int ROW_BYTES = HALO_COLS * PX_BYTES;  // a halo row: the blocks' SBO
+constexpr int HALO_BYTES = HALO_ROWS * ROW_BYTES;
+constexpr int RATE_BARS = 2 * tma::MAX_STAGES * 8 + 16;  // the ring's full[], empty[]; the halo's
 
-struct RateMaps {
-  CUtensorMap m[RATES];  // h through dilation r's box, r = 1..8
+struct RateRing {  // the weight ring: one 16-channel chunk of one dilated conv a stage
+  static constexpr int STAGE = 9 * KC * GC * 2;
+  static constexpr int FIT = (tma::SMEM_MAX - 1024 - HALO_BYTES - RATE_BARS) / STAGE;
+  static constexpr int STAGES = FIT < tma::MAX_STAGES ? FIT : tma::MAX_STAGES;
 };
+// 1024: slack to align the halo to a swizzle atom; the ring and the barriers follow it
+constexpr int RATE_SMEM = 1024 + HALO_BYTES + RateRing::STAGES * RateRing::STAGE + RATE_BARS;
+static_assert(RateRing::STAGES >= 4 && RATE_SMEM <= tma::SMEM_MAX, "shared memory");
+static_assert(HALO_ROWS <= 256 && HALO_COLS <= 256 && ROW_BYTES % 1024 == 0,
+              "TMA box; each halo row starts a swizzle atom");
 
 struct RateArgs {
-  const float* bias;   // d1..d8's biases, 8 x 32 fp32
-  __nv_bfloat16* ws;   // (B, H, W, 256): lrelu(s_r) in channels 32 (r - 1) ..
+  const float* bias;  // d1..d8's biases, 8 x 32 fp32
+  __nv_bfloat16* ws;  // (B, H, W, 256): lrelu(s_r) in channels 32 (r - 1) ..
   int B, H, W;
 };
 
-// The producer's chunks of dilation DIL for tile tl, then DIL + 1's.
+struct RateWalk {  // the row-major order of the 16 x 24 tiles: image, tile row, tile column
+  int tx_n, per_img, count;
+  __host__ __device__ RateWalk(int B, int H, int W)
+      : tx_n((W + RATE_TW - 1) / RATE_TW),
+        per_img(tx_n * ((H + RATE_TH - 1) / RATE_TH)),
+        count(B * per_img) {}
+  __device__ TileWalk::Tile at(int t) const {
+    const int ti = t % per_img;
+    return {0, t / per_img, ti / tx_n * RATE_TH, ti % tx_n * RATE_TW};
+  }
+};
+
+// The descriptor of a K-major wgmma operand in the 128-byte swizzled layout
+// (layout type 1): core matrices of 8 rows of 128 bytes, sbo bytes apart,
+// LBO unused, base offset 0.  The card swizzles by the address's bits, so a
+// start at any 128-byte row of an atom reads as TMA wrote it (a base offset
+// of (addr >> 7) & 7, as PTX describes it, gave wrong sums on an H100).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// One chunk's 27 wgmmas of dilation DIL for a consumer warpgroup: tap (ky,
+// kx) of block j reads the halo DIL (40 (ky - 1) + kx - 1) + 8 j pixels past
+// a, the warpgroup's first output pixel in the halo plus the chunk's 32
+// bytes (so each descriptor is da plus a constant); its weights are the
+// tap's [half][32][8] block at b.
 template <int DIL>
-__device__ __forceinline__ void produce_rates(const TileWalk::Tile& tl, int& s, uint32_t& phase,
-                                              uint32_t sbase, uint32_t bars, const char* w,
-                                              const RateMaps& maps) {
-  if constexpr (DIL <= RATES) {
-    using C = RateCfg<DIL>;
-    constexpr uint32_t TX = 2 * C::BOX_BYTES + C::B_BYTES;
-#pragma unroll 1
-    for (int k = 0; k < NF / KC; ++k) {
-      mbar_wait(bars + 8 * (tma::MAX_STAGES + s), phase ^ 1);
-      const uint32_t full = bars + 8 * s, a = sbase + s * RateRing::STAGE;
-      mbar_expect_tx(full, TX);
+__device__ __forceinline__ void rate_mmas(float (&acc)[RATE_BLOCKS][GC / 2], uint32_t a,
+                                          uint32_t b) {
+  const uint64_t da = sw128_desc(a, ROW_BYTES);
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        tma_load_4d(a + h * RateRing::PLANE, &maps.m[DIL - 1], full, k * KC + 8 * h, tl.x0 - DIL,
-                    tl.y0 - DIL, tl.b);
-      bulk_load(a + RateRing::A_BYTES, w + (DIL - 1) * RATE_W_BYTES + k * C::B_BYTES, C::B_BYTES,
-                full);
-      if (++s == RateRing::STAGES) {
-        s = 0;
-        phase ^= 1;
-      }
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dy = (tap / 3 - 1) * DIL, dx = (tap % 3 - 1) * DIL;
+    const uint64_t db = smem_desc(b + tap * KC * GC * 2, GC * 16, 128);
+#pragma unroll
+    for (int j = 0; j < RATE_BLOCKS; ++j) {
+      const int px = dy * HALO_COLS + dx + 8 * j;  // may be negative: a stays inside the halo
+      wgmma<GC>(acc[j], da + (uint64_t)(int64_t)(px * (PX_BYTES / 16)), db);
     }
-    produce_rates<DIL + 1>(tl, s, phase, sbase, bars, w, maps);
   }
 }
 
-// A consumer warpgroup's dilation DIL of its tile rows, then DIL + 1's:
-// the four chunks' wgmmas, then the epilogue (v_r = cast(acc + b_r), s_r =
-// cast(s_{r-1} + v_r), lrelu(s_r) stored).  Thread (warp, lane) holds
-// pixels 16 warp + lane / 4 (+ 8 for half h) of each row and channels c0 ..
-// c0 + 7 of the dilation's 32 (tma_channels), channel c0 + c of half h in
-// accumulator column 4 (c / 2) + 2 h + c % 2.
-template <int DIL>
-__device__ __forceinline__ void consume_rates(Ring<RateRing>& ring, uint32_t sbase,
-                                              uint32_t bars, int row0, int lane, int c0,
-                                              float (&acc)[RATE_ROWS][GC / 2],
-                                              uint32_t (&sum)[RATE_ROWS][2][4],
-                                              const RateArgs& g, size_t img, int y0, int xw) {
-  if constexpr (DIL <= RATES) {
-#pragma unroll
-    for (int m = 0; m < RATE_ROWS; ++m)
-#pragma unroll
-      for (int j = 0; j < GC / 2; ++j) acc[m][j] = 0.f;
-#pragma unroll 1
-    for (int k = 0; k < NF / KC; ++k) {
-      const uint32_t a = ring.acquire(sbase, bars);
-      tap_mmas<GC, RATE_ROWS, DIL>(acc, a, a + RateRing::A_BYTES, row0, RateRing::PLANE);
-      ring.release(bars, lane);
-    }
-    ring.drain(bars, lane);
+// A consumer warpgroup's part of a tile.  Thread (warp, lane) holds, of each
+// block j, pixels (row 2 warp + h, column 8 j + lane / 4) for h = 0, 1
+// (accumulator rows 16 warp + lane / 4 + 8 h) and channels c0 .. c0 + 7 of
+// the dilation's 32 (tma_channels), channel c0 + c of half h in accumulator
+// column 4 (c / 2) + 2 h + c % 2.
+struct RateConsumer {
+  using Acc = float[RATE_BLOCKS][GC / 2];
+  using Sum = uint32_t[RATE_BLOCKS][2][4];  // bf16 pairs
+  Ring<RateRing> ring;
+  uint32_t wbase, bars, halo_empty;
+  uint32_t a;  // the warpgroup's first output pixel in the halo
+  int lane, c0;
+  RateArgs g;
+  size_t img;  // the tile's image: its first pixel
+  int y0, x0;  // this thread's first pixel
+
+  // v_r = cast(acc + b_r), s_r = cast(s_{r-1} + v_r), lrelu(s_r) stored.
+  template <int DIL> __device__ __forceinline__ void epilogue(const Acc& acc, Sum& sum) {
     const float4 b0 = __ldg(reinterpret_cast<const float4*>(g.bias + GC * (DIL - 1) + c0));
     const float4 b1 = __ldg(reinterpret_cast<const float4*>(g.bias + GC * (DIL - 1) + c0 + 4));
     const float bias[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-    for (int m = 0; m < RATE_ROWS; ++m)
+    for (int j = 0; j < RATE_BLOCKS; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         uint32_t o[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          __nv_bfloat162 r = __floats2bfloat162_rn(acc[m][4 * i + 2 * h] + bias[2 * i],
-                                                   acc[m][4 * i + 2 * h + 1] + bias[2 * i + 1]);
+          __nv_bfloat162 r = __floats2bfloat162_rn(acc[j][4 * i + 2 * h] + bias[2 * i],
+                                                   acc[j][4 * i + 2 * h + 1] + bias[2 * i + 1]);
           if constexpr (DIL > 1) {
-            const __nv_bfloat162 p = as_bf2(sum[m][h][i]);
+            const __nv_bfloat162 p = as_bf2(sum[j][h][i]);
             r = __floats2bfloat162_rn(lo(p) + lo(r), hi(p) + hi(r));
           }
-          sum[m][h][i] = as_u32(r);
+          sum[j][h][i] = as_u32(r);
           o[i] = as_u32(lrelu2(r));
         }
-        const int y = y0 + m, x = xw + 8 * h;
+        const int y = y0 + h, x = x0 + 8 * j;
         if (y < g.H && x < g.W)
           *reinterpret_cast<uint4*>(g.ws + (img + (size_t)y * g.W + x) * CAT + GC * (DIL - 1) +
                                     c0) = make_uint4(o[0], o[1], o[2], o[3]);
       }
-    consume_rates<DIL + 1>(ring, sbase, bars, row0, lane, c0, acc, sum, g, img, y0, xw);
   }
-}
+
+  // Dilation DIL's four chunks, then its epilogue; then DIL + 1's.  Once
+  // dilation 8's wgmmas retire, each warp releases the halo.
+  template <int DIL> __device__ __forceinline__ void run(Acc& acc, Sum& sum) {
+    if constexpr (DIL <= RATES) {
+#pragma unroll
+      for (int j = 0; j < RATE_BLOCKS; ++j)
+#pragma unroll
+        for (int i = 0; i < GC / 2; ++i) acc[j][i] = 0.f;
+#pragma unroll 1
+      for (int k = 0; k < NF / KC; ++k) {
+        const uint32_t b = ring.acquire(wbase, bars);
+        rate_mmas<DIL>(acc, a + k * KC * 2, b);
+        ring.release(bars, lane);
+      }
+      ring.drain(bars, lane);
+      if constexpr (DIL == RATES)
+        if (lane == 0) mbar_arrive(halo_empty);
+      epilogue<DIL>(acc, sum);
+      run<DIL + 1>(acc, sum);
+    }
+  }
+};
 
 __global__ void __launch_bounds__(tma::THREADS, 1)
-dilated_block_rates(const __grid_constant__ RateMaps maps, RateArgs g,
+dilated_block_rates(const __grid_constant__ CUtensorMap map, RateArgs g,
                     const __nv_bfloat16* __restrict__ w) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t sbase = (smem_addr(smem) + 127) & ~127u;
-  const uint32_t bars = sbase + RateRing::STAGES * RateRing::STAGE;
+  const uint32_t halo = (smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t wbase = halo + HALO_BYTES;
+  const uint32_t bars = wbase + RateRing::STAGES * RateRing::STAGE;
+  const uint32_t halo_full = bars + 16 * tma::MAX_STAGES, halo_empty = halo_full + 8;
   const int tid = threadIdx.x;
-  const TileWalk walk(g.B, g.H, g.W, 1, RATE_TH);
+  const RateWalk walk(g.B, g.H, g.W);
 
-  if (tid == 0) init_ring<RateRing>(bars);
+  if (tid == 0) {
+    mbar_init(halo_full, 1);
+    mbar_init(halo_empty, tma::CONSUMERS * 4);
+    init_ring<RateRing>(bars);  // its fence covers the halo's barriers too
+  }
   __syncthreads();
 
   if (tid < 128) {
+    // ---- producer, one thread: per tile the halo, then d1..d8's 32 weight chunks ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(tma::PRODUCER_REGS));
     if (tid == 0) {
-#pragma unroll
-      for (int i = 0; i < RATES; ++i)
-        asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&maps.m[i]))
-                     : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map))
+                   : "memory");
+      const char* wsrc = reinterpret_cast<const char*>(w);
       int s = 0;
-      uint32_t phase = 0;
-      for (int t = blockIdx.x; t < walk.count; t += gridDim.x)
-        produce_rates<1>(walk.at(t, RATE_TH), s, phase, sbase, bars,
-                         reinterpret_cast<const char*>(w), maps);
+      uint32_t phase = 0, hphase = 0;
+      for (int t = blockIdx.x; t < walk.count; t += gridDim.x) {
+        const TileWalk::Tile tl = walk.at(t);
+        mbar_wait(halo_empty, hphase ^ 1);
+        hphase ^= 1;
+        mbar_expect_tx(halo_full, HALO_BYTES);
+        tma_load_4d(halo, &map, halo_full, 0, tl.x0 - RATES, tl.y0 - RATES, tl.b);
+#pragma unroll 1
+        for (int i = 0; i < RATES * NF / KC; ++i) {  // dilation i / 4 + 1, chunk i % 4
+          mbar_wait(bars + 8 * (tma::MAX_STAGES + s), phase ^ 1);
+          const uint32_t full = bars + 8 * s;
+          mbar_expect_tx(full, RateRing::STAGE);
+          bulk_load(wbase + s * RateRing::STAGE, wsrc + (size_t)i * RateRing::STAGE,
+                    RateRing::STAGE, full);
+          if (++s == RateRing::STAGES) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
     }
   } else {
+    // ---- consumer warpgroups: wgmma over the halo, the cascade, the stores ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(tma::CONSUMER_REGS));
     const int cw = tid / 128 - 1, warp = (tid % 128) / 32, lane = tid % 32;
-    const int c0 = 8 * (lane % 4);
-    Ring<RateRing> ring;
-    float acc[RATE_ROWS][GC / 2];
-    uint32_t sum[RATE_ROWS][2][4];
+    RateConsumer c{{}, wbase, bars, halo_empty,
+                   halo + ((RATE_TH / 2 * cw + RATES) * HALO_COLS + RATES) * PX_BYTES, lane,
+                   8 * (lane % 4), g, 0, 0, 0};
+    RateConsumer::Acc acc;
+    RateConsumer::Sum sum;
+    uint32_t hphase = 0;
     for (int t = blockIdx.x; t < walk.count; t += gridDim.x) {
-      const TileWalk::Tile tl = walk.at(t, RATE_TH);
-      consume_rates<1>(ring, sbase, bars, cw * RATE_ROWS, lane, c0, acc, sum, g,
-                       (size_t)tl.b * g.H * g.W, tl.y0 + cw * RATE_ROWS,
-                       tl.x0 + 16 * warp + lane / 4);
+      const TileWalk::Tile tl = walk.at(t);
+      c.img = (size_t)tl.b * g.H * g.W;
+      c.y0 = tl.y0 + RATE_TH / 2 * cw + 2 * warp;
+      c.x0 = tl.x0 + lane / 4;
+      mbar_wait(halo_full, hphase);
+      hphase ^= 1;
+      c.run<1>(acc, sum);
     }
   }
 }
@@ -331,27 +419,27 @@ cudaError_t launch_c1(const Geom& g, const __nv_bfloat16* w, const ConvEpi& epi,
   return cudaGetLastError();
 }
 
-template <int DIL>
-cudaError_t rate_map(RateMaps& maps, const void* h, int B, int H, int W) {
-  if constexpr (DIL > RATES) {
-    return cudaSuccess;
-  } else {
-    using C = RateCfg<DIL>;
-    const cudaError_t e = tensor_map(&maps.m[DIL - 1], h, NF, NF, B, H, W, C::BOX_ROWS, C::HALO_W);
-    return e != cudaSuccess ? e : rate_map<DIL + 1>(maps, h, B, H, W);
-  }
-}
-
+// h (B, H, W, 64) read in boxes of the whole halo: 64 channels (one swizzled
+// 128-byte row a pixel) x 40 columns x 32 rows, zero fill.
 cudaError_t launch_rates(const void* h, const __nv_bfloat16* w, const RateArgs& g,
                          cudaStream_t s) {
-  RateMaps maps;
-  cudaError_t e = rate_map<1>(maps, h, g.B, g.H, g.W);
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t px = PX_BYTES;
+  const cuuint64_t dims[4] = {NF, (cuuint64_t)g.W, (cuuint64_t)g.H, (cuuint64_t)g.B};
+  const cuuint64_t strides[3] = {px, px * g.W, px * g.W * g.H};
+  const cuuint32_t box[4] = {NF, HALO_COLS, HALO_ROWS, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  CUtensorMap map;
+  if (fn(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(h), dims, strides, box,
+         estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
   int grid = 0;
-  if (e == cudaSuccess)
-    e = persistent_grid<KernelTag<RateRing, RateArgs>>(
-        dilated_block_rates, RateRing::SMEM, TileWalk(g.B, g.H, g.W, 1, RATE_TH).count, &grid);
+  const cudaError_t e = persistent_grid<KernelTag<RateRing, RateArgs>>(
+      dilated_block_rates, RATE_SMEM, RateWalk(g.B, g.H, g.W).count, &grid);
   if (e != cudaSuccess) return e;
-  dilated_block_rates<<<grid, tma::THREADS, RateRing::SMEM, s>>>(maps, g, w);
+  dilated_block_rates<<<grid, tma::THREADS, RATE_SMEM, s>>>(map, g, w);
   return cudaGetLastError();
 }
 
@@ -507,7 +595,15 @@ int innfer_dilated_block(const void* x, void* h, void* ws, void* out, const void
 // The dynamic shared memory (bytes) of c1's kernel (rates 0) and of the
 // dilated convs' (rates 8), for the build report.
 int innfer_dilated_block_smem_bytes(int rates) {
-  return rates == 0 ? C1Cfg::SMEM : RateRing::SMEM;
+  return rates == 0 ? C1Cfg::SMEM : RATE_SMEM;
+}
+
+// The bytes dilated_block_rates stages into shared memory in one call on a
+// (B, H, W, 64) h: its tiles' halo boxes (part 0) or their weights (part 1),
+// for the build report.
+long long innfer_dilated_block_staged_bytes(int B, int H, int W, int part) {
+  const long long tiles = RateWalk(B, H, W).count;
+  return tiles * (part == 0 ? HALO_BYTES : RATES * NF / KC * RateRing::STAGE);
 }
 
 const char* innfer_cuda_error_string(int e) {

@@ -1061,12 +1061,16 @@ def _ppon_block(dev, seed=5):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1, 576, 960, 64), (2, 37, 101, 64), (1, 9, 70, 64)])
+@pytest.mark.parametrize("shape", [(1, 576, 960, 64), (2, 37, 101, 64), (1, 9, 70, 64),
+                                   (1, 20, 12, 64), (1, 17, 70, 64), (3, 40, 52, 64)])
 @pytest.mark.parametrize("with_res", [False, True])
 def test_dilated_block_matches_plain_on_card(cuda_device, monkeypatch, shape, with_res):
     """fused_dilated_block at the PPON cell's trunk shape and at ragged ones
-    (rows not a multiple of the 8- and 16-row tiles, part of a 64-column
-    tile, B of 2), plain and with the RRBlock's residual, against the
+    (c1's 8-row and 64-column tiles and the dilated convs' 16 x 24 tiles in
+    part; an image narrower than the dilated convs' 40-column halo box, so
+    its zero fill reaches both sides; a last tile row of one row, and a last
+    tile column of 22 of 24; B of 2 and 3, tiles walking across images),
+    plain and with the RRBlock's residual, against the
     model's plain bf16 path (cuDNN's TF32 tensor-core convs through the
     bias route) and against its plain composition with exact (float64)
     sums: every value within one bf16 ulp of both, >= 99.9% of values equal
