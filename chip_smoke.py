@@ -65,7 +65,7 @@ the final result line):
               tile_mode="auto" (auto-detection, auto -> hybrid): exactly
               69 fused_rdb launches per image and 4 tail_conv launches per
               tail group, and no other, 4x PNGs read back, and the
-              same images through backend="torch" at >= 40 dB, with the
+              same images inside ops.plain_path at >= 40 dB, with the
               kernel run's tiling asked for (tile_mode="hybrid": a trunk
               of plain ops keeps the auto grid);
   5. tail     the A/B of the JAX package's exact tail rewrites on the main
@@ -114,7 +114,7 @@ the final result line):
               512x512 and 1080x1920 PNGs, through InferenceSession with the
               cyclegan preset (non-strict load, [-1, 1]) in bf16,
               tile_mode="auto": 9 fused_resnet_block launches per tile
-              group, 1x PNGs, >= 40 dB against backend="torch", and fp32
+              group, 1x PNGs, >= 40 dB against ops.plain_path, and fp32
               kernel path vs torch path >= 80 dB on a small input;
   9. zoo      seeded synthetic SRResNet 4x (nf=64, nb=16, pixelshuffle,
               relu, CNA), PAN 4x (nf=40, unf=24, nb=16, self-attention)
@@ -784,6 +784,7 @@ def phase_dilated(dev, kernels=None, shape=DILATED_SHAPE):
     from innfer_tpu_torch.models import ppon as PP
     from innfer_tpu_torch.models.base import ParamDict, cast_params
     from innfer_tpu_torch.ops import dilated_block as DB
+    from innfer_tpu_torch.ops import plain_path
     from innfer_tpu_torch.tools import synth_params as SP
 
     state = SP.ppon_state(nb=1, nf=NF, scale=4, seed=97)
@@ -796,14 +797,10 @@ def phase_dilated(dev, kernels=None, shape=DILATED_SHAPE):
     x = torch.randn(*shape, generator=g).to(dev, torch.bfloat16)
     res = torch.randn(*shape, generator=g).to(dev, torch.bfloat16)
     kern = lambda r=None: DB.fused_dilated_block(x, w, b, res=r, packed=packed)  # noqa: E731
-    orig = DB.fusable
 
     def plain(r=None):
-        DB.fusable = lambda *a, **k: False
-        try:
+        with plain_path():
             return PP._res_block_32(params, x, prefix, res=r)
-        finally:
-            DB.fusable = orig
 
     for r in (None, res):
         before = DB.fused_dilated_block.launches
@@ -887,6 +884,7 @@ def phase_main(dev, work):
     import torch
 
     from innfer_tpu_torch.io import images as iio
+    from innfer_tpu_torch.ops import plain_path
     from innfer_tpu_torch.ops.rdb import fused_rdb
     from innfer_tpu_torch.pipeline import InferenceSession
 
@@ -944,17 +942,16 @@ def phase_main(dev, work):
     device_ms = [{k: sum(a.elapsed_time(b) for a, b in v) for k, v in im.items()}
                  for im in per_image]
 
-    # backend='torch' runs no kernel in its trunk, so auto would keep the
-    # tile grid: ask for the kernel run's tiling to compare the kernel alone
-    ref_sess = InferenceSession(ckpt, compute_dtype=torch.bfloat16, tile_mode="hybrid",
-                                backend="torch")
+    # the plain path, in the kernel run's tiling, to compare the kernels alone
+    ref_sess = InferenceSession(ckpt, compute_dtype=torch.bfloat16, tile_mode="hybrid")
     ref_dir = os.path.join(work, "out_torch")
     t0 = time.perf_counter()
-    ref_sess.process(in_dir, ref_dir, verbose=False)
+    with plain_path():
+        ref_sess.process(in_dir, ref_dir, verbose=False)
     torch.cuda.synchronize()
     ref_wall = time.perf_counter() - t0
-    if fused_rdb.launches != launches:
-        fail("backend='torch' launched the kernel")
+    if read_counts() != counts:
+        fail("the plain path launched a kernel")
 
     dbs = []
     for (name, (h, w)), path in zip(sizes.items(), sorted(written)):
@@ -970,10 +967,9 @@ def phase_main(dev, work):
                       for n, t in zip(sizes, device_ms))
     print(f"[main] {len(sizes)} images in bf16, mode {runner.last_mode}: fused_rdb "
           f"launches {launches} (69 per image), tail_conv {counts['tail_conv']} (4 per tile "
-          f"group, {groups} groups; in the backend='torch' run too: backend names the RDB's "
-          f"route); wall {wall:.3f} s for both "
-          f"(backend='torch', tile_mode='hybrid' {ref_wall:.3f} s); CUDA events: {times}; "
-          f"PSNR vs backend='torch' {', '.join(f'{d:.1f}' for d in dbs)} dB", flush=True)
+          f"group, {groups} groups); wall {wall:.3f} s for both "
+          f"(plain path, tile_mode='hybrid' {ref_wall:.3f} s); CUDA events: {times}; "
+          f"PSNR vs the plain path {', '.join(f'{d:.1f}' for d in dbs)} dB", flush=True)
     if min(dbs) < MIN_PSNR_DB:
         fail(f"kernel path vs torch path PSNR {min(dbs):.1f} dB < {MIN_PSNR_DB}")
 
@@ -983,8 +979,8 @@ def phase_main(dev, work):
     p32 = {k: v.float() for k, v in params.items()}
     with torch.no_grad():
         a = model.apply(p32, small)
-        ref_model = ref_sess.stages[0].model
-        b = ref_model.apply(p32, small)
+        with plain_path():
+            b = model.apply(p32, small)
     db32 = psnr(a.cpu(), b.cpu(), 1.0)
     print(f"[main] fp32 (1,40,56,3): kernel path vs torch path PSNR {db32:.1f} dB", flush=True)
     if db32 < 80.0 or not torch.isfinite(a).all():
@@ -1023,33 +1019,32 @@ def tail_form(form: str):
     to False, as the tests do (the predicates hold the eligibility of the
     collapse and the phase tail); form d also swaps the per-phase HR conv
     for the dense phase conv (its kernel cached on the ParamDict like the
-    package's).  Forms a-d run on the plain composition (ops/tail_conv's
-    gate patched to False), as the JAX package's rewrites; form k is (c)
-    as the session runs it, its convs on the tail conv kernel where the
-    gate holds."""
+    package's).  Forms a-d run on the plain composition (inside
+    ``ops.plain_path``), as the JAX package's rewrites; form k is (c) as
+    the session runs it, its convs on the tail conv kernel where the gate
+    holds."""
+    from unittest import mock
+
     from innfer_tpu_torch.models import common as C
     from innfer_tpu_torch.nn import functional as F
     from innfer_tpu_torch.nn import phase as PH
-    from innfer_tpu_torch.ops import tail_conv as TC
-
-    saved = C.upconv_collapse_ok, C.phase_tail_ok, C.phase_hr_conv, TC.fusable
+    from innfer_tpu_torch.ops import plain_path
 
     def dense_hr_conv(params, p, key, r=2, act=None):
         k = C.derived(params, "phase_dense", key, lambda w: PH.dense_phase_kernel(w, r))
         return F.act(act, F.conv2d(p, k, PH.phase_bias(params.get(f"{key}.bias"), r), padding=1))
 
-    if form == "a":
-        C.upconv_collapse_ok = lambda *a, **k: False
-    if form in "ab":
-        C.phase_tail_ok = lambda *a, **k: False
-    if form == "d":
-        C.phase_hr_conv = dense_hr_conv
-    if form != "k":
-        TC.fusable = lambda *a, **k: False
-    try:
+    false = lambda *a, **k: False  # noqa: E731
+    with contextlib.ExitStack() as stack:
+        if form == "a":
+            stack.enter_context(mock.patch.object(C, "upconv_collapse_ok", false))
+        if form in "ab":
+            stack.enter_context(mock.patch.object(C, "phase_tail_ok", false))
+        if form == "d":
+            stack.enter_context(mock.patch.object(C, "phase_hr_conv", dense_hr_conv))
+        if form != "k":
+            stack.enter_context(plain_path())
         yield
-    finally:
-        C.upconv_collapse_ok, C.phase_tail_ok, C.phase_hr_conv, TC.fusable = saved
 
 
 def policy_form(params) -> str:
@@ -1542,6 +1537,7 @@ def phase_cyclegan(dev, work):
 
     from innfer_tpu_torch.io import images as iio
     from innfer_tpu_torch.models import resnet as resnet_model
+    from innfer_tpu_torch.ops import plain_path
     from innfer_tpu_torch.pipeline import InferenceSession, select_presets
 
     ckpt = os.path.join(work, "cyclegan9_synth.pth")
@@ -1600,16 +1596,16 @@ def phase_cyclegan(dev, work):
     device_ms = [a.elapsed_time(b) for a, b in events]
     block_ms = [sum(a.elapsed_time(b) for i, a, b in blocks if i == k) for k in range(len(sizes))]
 
-    ref_sess = InferenceSession(ckpt, backend="torch", **kw)
-    ref_model = ref_sess.stages[0].model
+    ref_sess = InferenceSession(ckpt, **kw)
     ref_events = time_stage(torch, ref_sess)
     ref_dir = os.path.join(work, "cg_out_torch")
     t0 = time.perf_counter()
-    ref_sess.process(in_dir, ref_dir, verbose=False)
+    with plain_path():
+        ref_sess.process(in_dir, ref_dir, verbose=False)
     torch.cuda.synchronize()
     ref_wall = time.perf_counter() - t0
     if read_counts() != counts:
-        fail("backend='torch' launched a kernel")
+        fail("the plain path launched a kernel")
     dbs = []
     for (name, (h, w)), path in zip(sizes.items(), sorted(written)):
         out = iio.read_img(path)
@@ -1624,12 +1620,12 @@ def phase_cyclegan(dev, work):
                       for n, g in groups.items())
     times = ", ".join(
         f"{n} {t:.1f} ms ({b:.1f} ms in the blocks' kernels, {t - b:.1f} ms outside them; "
-        f"backend='torch' {a.elapsed_time(z):.1f} ms)"
+        f"plain path {a.elapsed_time(z):.1f} ms)"
         for n, t, b, (a, z) in zip(sizes, device_ms, block_ms, ref_events))
     print(f"[cyclegan] resnet_9blocks ngf={CG_NGF}, {len(sizes)} images in bf16, mode "
           f"{runner.last_mode} ({plans}): fused_resnet_block launches "
-          f"{counts['fused_resnet_block']}; wall {wall:.3f} s for both (backend='torch' "
-          f"{ref_wall:.3f} s); CUDA events per image: {times}; PSNR vs backend='torch' "
+          f"{counts['fused_resnet_block']}; wall {wall:.3f} s for both (plain path "
+          f"{ref_wall:.3f} s); CUDA events per image: {times}; PSNR vs the plain path "
           f"{', '.join(f'{d:.1f}' for d in dbs)} dB (bar {MIN_PSNR_DB})", flush=True)
     if min(dbs) < MIN_PSNR_DB:
         fail(f"CycleGAN kernel path vs torch path PSNR {min(dbs):.1f} dB < {MIN_PSNR_DB}")
@@ -1638,7 +1634,8 @@ def phase_cyclegan(dev, work):
     small = (torch.rand(1, 64, 96, 3, generator=torch.Generator().manual_seed(42)) * 2 - 1).to(dev)
     p32 = {k: v.float() for k, v in params.items()}
     a = model.apply(p32, small)
-    b = ref_model.apply(p32, small)
+    with plain_path():
+        b = model.apply(p32, small)
     db32 = psnr(a.cpu(), b.cpu(), 1.0)
     print(f"[cyclegan] fp32 (1,64,96,3): kernel path vs torch path PSNR {db32:.1f} dB (bar 80)",
           flush=True)

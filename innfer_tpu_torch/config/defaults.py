@@ -142,8 +142,7 @@ def get_network_config(network: Union[str, Dict[str, Any]], scale: int) -> Dict[
             padding_type=pop("padding_type", "reflect"),
         )
 
-    # extension keys the model factories read from cfg (outm and backend)
-    for extra in ("outm", "backend"):
-        if extra in opts:
-            cfg[extra] = opts.pop(extra)
+    # the extension key the model factories read from cfg
+    if "outm" in opts:
+        cfg["outm"] = opts.pop("outm")
     return cfg

@@ -24,7 +24,6 @@ def load_model(
     *,
     param_dtype: torch.dtype = torch.float32,
     device: DeviceLike = None,
-    backend: Optional[str] = None,
     strict: bool = True,
 ) -> Tuple[ModelDef, Params]:
     """Load a checkpoint and build the matching model, params on ``device``
@@ -32,10 +31,9 @@ def load_model(
 
     ``arch='infer'`` auto-detects the architecture from state-dict key
     fingerprints and recovers nb/nf/scale from shapes; otherwise ``arch``
-    is a type alias resolved with library defaults.  ``backend`` selects
-    the kernel backend (auto | kernel | torch, models/rrdb.py and
-    models/resnet.py).  ``strict=False`` drops the keys the model lists in
-    ``ignore_key_patterns`` (the cyclegan preset's non-strict load).
+    is a type alias resolved with library defaults.  ``strict=False``
+    drops the keys the model lists in ``ignore_key_patterns`` (the
+    cyclegan preset's non-strict load).
     """
     dev = resolve_device(device)
     state = swa_to_normal(load_checkpoint(path))
@@ -48,8 +46,6 @@ def load_model(
                                  scale if scale else 1)
     else:
         cfg = get_network_config({"type": arch}, scale if scale else 1)
-    if backend is not None:
-        cfg["backend"] = backend
     return load_model_from_state(state, cfg, param_dtype=param_dtype, device=dev,
                                  strict=strict)
 

@@ -45,6 +45,20 @@ class ParamDict(dict):
 Params = ParamDict
 
 
+def cached(params: Mapping[str, Any], key: Any, build: Callable[[], Any]) -> Any:
+    """``build()``, kept in ``params.cache`` under ``key``: a derived form of
+    the parameters (a kernel's packed weights, a tail rewrite's weights) is
+    built once per ParamDict, and ``key`` names what it depends on besides
+    the parameters (a dtype, a device).  A plain dict has no cache and
+    builds at every call."""
+    cache = getattr(params, "cache", None)
+    if cache is None:
+        return build()
+    if key not in cache:
+        cache[key] = build()
+    return cache[key]
+
+
 @dataclass
 class ModelDef:
     """An architecture: plain apply + conversion metadata."""

@@ -6,7 +6,8 @@ phase-space tail, :func:`apply_phase_tail` over ``nn/phase.py``),
 reference-semantics conv blocks (mode CNA | NAC | CNAC, batch/instance
 norm, act, pad) and the output cap.
 
-Which tail form runs is decided by two predicates, :func:`upconv_collapse_ok`
+The three models run their tails through :func:`sr_tail`.  Which tail
+form runs is decided by two predicates, :func:`upconv_collapse_ok`
 and :func:`phase_tail_ok`, from an A/B on the H100 (``chip_smoke.py``
 ``[tail]``), which adopted the JAX package's form: collapsed upconv
 blocks and the phase tail.  Each form stays callable, and tests force
@@ -30,6 +31,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from innfer_tpu_torch.models.base import cached
 from innfer_tpu_torch.nn import functional as F
 from innfer_tpu_torch.nn import phase as PH
 from innfer_tpu_torch.nn import resize as R
@@ -91,19 +93,11 @@ def _fused(params: Params, x: torch.Tensor, key: str, act, *, mode: str, pack,
 
 
 def derived(params: Params, tag: str, key: str, build):
-    """``build(weight)`` for the weight ``key + ".weight"``, kept in the
-    ParamDict's cache per (tag, key, dtype, device): a rewrite's weights
-    are built once per parameter dict and dtype, and a cast (a new
-    ParamDict) builds its own.  A plain dict has no cache and builds at
-    every call."""
+    """``build(weight)`` for the weight ``key + ".weight"``, :func:`cached`
+    per (tag, key, the weight's dtype and device): a cast (a new ParamDict)
+    builds its own."""
     w = params[f"{key}.weight"]
-    cache = getattr(params, "cache", None)
-    if cache is None:
-        return build(w)
-    ck = (tag, key, w.dtype, w.device)
-    if ck not in cache:
-        cache[ck] = build(w)
-    return cache[ck]
+    return cached(params, (tag, key, w.dtype, w.device), lambda: build(w))
 
 
 def collapse_upconv_weight(w: torch.Tensor, b: Optional[torch.Tensor], factor: int):
@@ -249,6 +243,40 @@ def apply_phase_tail(params: Params, h: torch.Tensor, *, up_key: str, up_mode: s
     p = phase_hr_conv(params, p, f"{out_prefix}.{hr0}", r, act=act_type)
     p = phase_hr_conv(params, p, f"{out_prefix}.{hr0 + 2}", r, act=finalact)
     return PH.phase_shuffle_out(p, r)
+
+
+def sr_tail(params: Params, h: torch.Tensor, prefix: str, *, upscale: int, up_mode: str,
+            act_type, finalact, start: int = 2) -> torch.Tensor:
+    """The SR tail of the flattened-sequential skeleton, its modules at
+    ``prefix.<i>`` from ``start`` on: the upsample blocks (LR-collapsed
+    where :func:`upconv_collapse_ok` says), then either the last block and
+    the HR convs in phase space (where :func:`phase_tail_ok` says) or the
+    HR convs at full resolution, and ``finalact`` after them.  RRDBNet and
+    SRResNet run it at ``model`` (start 2); PPON once per reconstruction
+    branch (start 0, no finalact), each branch's phase predicate reading
+    only its own last-block weight, so the three agree for every PPON
+    state dict.  The one seam of the three models' tails."""
+    _n_up, factor = n_upscale_blocks(upscale)
+    up_convs, hr0 = upsample_indices(upscale, up_mode, start=start)
+    # the act submodule's flat index inside each upsample block:
+    # upconv [Up, conv@ci, act@ci+1]; pixelshuffle [conv@ci, PS, act@ci+2]
+    act_off = 1 if up_mode == "upconv" else 2
+    phase = bool(up_convs) and phase_tail_ok(
+        params, f"{prefix}.{up_convs[-1]}", factor=factor, up_mode=up_mode,
+        act_type=act_type, finalact=finalact)
+    for ci in (up_convs[:-1] if phase else up_convs):
+        h = apply_upsample_block(params, h, f"{prefix}.{ci}", mode=up_mode, factor=factor,
+                                 act_type=act_type, act_key=f"{prefix}.{ci + act_off}")
+    if phase:
+        return apply_phase_tail(params, h, up_key=f"{prefix}.{up_convs[-1]}", up_mode=up_mode,
+                                act_type=act_type, hr0=hr0, finalact=finalact,
+                                out_prefix=prefix)
+    h = apply_hr_convs(params, h, prefix, hr0, act_type, act_key=f"{prefix}.{hr0 + 1}")
+    if finalact:
+        # the final act follows HR_conv1 in the flattened sequential
+        # (RRDBNet_arch.py:45-48)
+        h = F.act(finalact, h, params=params, key=f"{prefix}.{hr0 + 3}")
+    return h
 
 
 def warn_train_dropout(arch: str) -> None:

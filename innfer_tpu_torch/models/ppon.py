@@ -20,13 +20,13 @@ dtype, as the JAX package's ``jnp.asarray(.., x.dtype)`` does.
 The hybrid split: ``apply_trunk`` runs CFEM, SFEM and PFEM and returns
 their three 64-channel maps as one 192-channel tensor; ``apply_tail`` runs
 the three reconstruction branches on a tile of it and sums them, which is
-``apply``'s out_p.  Each branch is ESRGAN's x4 tail: its upsample blocks
-LR-collapsed and its last block with the HR convs in phase space where the
-predicates of ``models/common.py`` say; the three branches are summed at
-full resolution.  A block runs on the hand-written kernel of
-``ops/dilated_block.py`` wherever ``dilated_block.fusable`` holds (a bf16
-CUDA tensor, nf 64, unsharded weights); elsewhere the plain composition
-below runs (the CPU, fp32, tp-sharded weights).  The tracer's counters
+``apply``'s out_p.  Each branch is ESRGAN's x4 tail (``common.sr_tail``):
+its upsample blocks LR-collapsed and its last block with the HR convs in
+phase space where the predicates of ``models/common.py`` say; the three
+branches are summed at full resolution.  A block runs on the hand-written
+kernel of ``ops/dilated_block.py`` wherever ``dilated_block.fusable`` holds
+(a bf16 CUDA tensor, nf 64, unsharded weights); elsewhere the plain
+composition below runs (the CPU, fp32, tp-sharded weights).  The tracer's counters
 ``dilated_blocks`` (every block) and ``dilated_blocks_fused`` (those on
 the kernel) say which.
 """
@@ -37,7 +37,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from innfer_tpu_torch.models import common as C
-from innfer_tpu_torch.models.base import ModelDef
+from innfer_tpu_torch.models.base import ModelDef, cached
 from innfer_tpu_torch.nn import functional as F
 from innfer_tpu_torch.observability import count
 from innfer_tpu_torch.ops import dilated_block as DB
@@ -51,18 +51,6 @@ def _block_params(params, prefix: str):
             [params.get(f"{prefix}.{n}.bias") for n in _CONVS])
 
 
-def _packed(params, prefix: str, x: torch.Tensor) -> Optional[DB.PackedBlock]:
-    """The kernel layout of one block's weights, cached on the ParamDict per
-    device (None for a plain dict)."""
-    cache = getattr(params, "cache", None)
-    if cache is None:
-        return None
-    key = ("dilated_block", prefix, x.device)
-    if key not in cache:
-        cache[key] = DB.pack_block(*_block_params(params, prefix))
-    return cache[key]
-
-
 def _res_block_32(params, x: torch.Tensor, prefix: str,
                   res: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One block; with ``res`` (the RRBlock's input, for its last block)
@@ -71,8 +59,9 @@ def _res_block_32(params, x: torch.Tensor, prefix: str,
     weights, biases = _block_params(params, prefix)
     if DB.fusable(x, weights, biases):
         count("dilated_blocks_fused", 1)
-        return DB.fused_dilated_block(x, weights, biases, res=res,
-                                      packed=_packed(params, prefix, x))
+        packed = cached(params, ("dilated_block", prefix, x.device),
+                        lambda: DB.pack_block(weights, biases))
+        return DB.fused_dilated_block(x, weights, biases, res=res, packed=packed)
 
     def conv(name, t, pad, dil):
         return F.conv2d(t, params[f"{prefix}.{name}.weight"],
@@ -102,12 +91,6 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
     act_type = cfg.get("act_type", "lrelu")
     alpha = float(cfg.get("alpha", 1.0))
 
-    n_up, factor = C.n_upscale_blocks(upscale)
-    # recon modules: [n_up x (Upsample, conv, act)] + HR0 conv + act + HR1 conv
-    up_convs = [3 * i + 1 for i in range(n_up)]
-    hr0 = 3 * n_up
-    mods = ("CRM", "SRM", "PRM")
-
     def trunk(params, x: torch.Tensor):
         fea = C.conv3x3(params, x, "CFEM.0")
         t = fea
@@ -124,19 +107,11 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
 
     def branches(params, feats):
         """(out_c, out_s, out_p) at full resolution."""
-        phase = bool(up_convs) and all(
-            C.phase_tail_ok(params, f"{m}.{up_convs[-1]}", factor=factor, up_mode="upconv",
-                            act_type=act_type, finalact=None) for m in mods)
 
         def recon(h, mod: str):
-            for ci in (up_convs[:-1] if phase else up_convs):
-                h = C.apply_upsample_block(params, h, f"{mod}.{ci}", mode="upconv",
-                                           factor=factor, act_type=act_type)
-            if phase:
-                return C.apply_phase_tail(params, h, up_key=f"{mod}.{up_convs[-1]}",
-                                          up_mode="upconv", act_type=act_type, hr0=hr0,
-                                          finalact=None, out_prefix=mod)
-            return C.apply_hr_convs(params, h, mod, hr0, act_type)
+            # [n_up x (Upsample, conv, act)] + HR0 conv + act + HR1 conv
+            return C.sr_tail(params, h, mod, upscale=upscale, up_mode="upconv",
+                             act_type=act_type, finalact=None, start=0)
 
         out_c = recon(feats[0], "CRM")
         out_s = recon(feats[1], "SRM") + out_c

@@ -6,13 +6,11 @@ deconv upsampling): ReflectionPad(3) + 7x7 conv -> 2 stride-2 downs ->
 n_blocks residual blocks -> 2 upsamplings -> ReflectionPad(3) + 7x7 conv
 -> Tanh.
 
-Backends for the residual block (``cfg["backend"]``):
-  * ``kernel``: the fused CUDA ResnetBlock (ops/resnet_block.py); requires
-    instance norm and reflect padding (dropout is identity at inference).
-    On a CPU tensor the wrapper runs its plain version.
-  * ``torch``: pad, cuDNN conv, instance norm, ReLU, pad, conv, norm, add.
-  * ``auto`` (default): ``kernel`` for a CUDA tensor in the configuration
-    and shapes the kernel covers, else ``torch``.
+A residual block runs on the fused CUDA ResnetBlock (ops/resnet_block.py)
+wherever ``resnet_block.fusable`` holds (a CUDA tensor, instance norm,
+reflect padding, the shapes the kernel covers; dropout is identity at
+inference), else on the plain composition: pad, cuDNN conv, instance norm,
+ReLU, pad, conv, norm, add.
 
 Pre-0.4 InstanceNorm checkpoints carry running_mean/running_var keys that
 inference ignores; non-strict loading drops them (``ignore_key_patterns``,
@@ -25,14 +23,12 @@ from typing import Any, Dict
 import torch
 
 from innfer_tpu_torch.models import common as C
-from innfer_tpu_torch.models.base import ModelDef
+from innfer_tpu_torch.models.base import ModelDef, cached
 from innfer_tpu_torch.nn import functional as F
 from innfer_tpu_torch.nn import resize as R
-from innfer_tpu_torch.ops.resnet_block import (fused_resnet_block,
-                                               pack_resnet_block,
-                                               resnet_block_ok)
+from innfer_tpu_torch.ops import resnet_block as RB
+from innfer_tpu_torch.ops.resnet_block import fused_resnet_block, pack_resnet_block
 
-_BACKENDS = ("auto", "kernel", "torch")
 _PAD_MODES = ("reflect", "replicate", "zero")
 
 
@@ -41,7 +37,6 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
     norm_type = cfg.get("norm_type", "instance")
     pad_type = cfg.get("padding_type", "reflect")
     upsample_mode = cfg.get("upsample_mode", "deconv")
-    backend = cfg.get("backend", "auto")
     if norm_type in ("IN", "instance"):
         is_instance = True
     elif norm_type in ("BN", "batch"):
@@ -50,13 +45,6 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
         raise NotImplementedError(f"norm [{norm_type}] for resnet generator")
     if pad_type not in _PAD_MODES:
         raise NotImplementedError(f"padding [{pad_type}] is not implemented")
-    if backend not in _BACKENDS:
-        raise ValueError(f"backend must be one of {_BACKENDS}; got {backend!r}")
-    kernel_config = is_instance and pad_type == "reflect"
-    if backend == "kernel" and not kernel_config:
-        raise ValueError(
-            "backend='kernel' requires instance norm and reflect padding; got "
-            f"norm {norm_type!r}, padding {pad_type!r}")
 
     # train-mode BN for presets that keep the net in train() (reference
     # run.py:299-309); dropout is identity here either way
@@ -83,29 +71,15 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
     i_conv1 = 1 if has_pad else 0
     i_conv2 = i_conv1 + 3 + int(use_dropout) + int(has_pad)
 
-    def use_kernel(x):
-        if backend == "kernel":
-            return True
-        return (backend == "auto" and kernel_config and x.is_cuda
-                and resnet_block_ok(tuple(x.shape), x.dtype))
-
-    def res_block_kernel(params, x, k1, k2):
-        w1, b1 = params[f"{k1}.weight"], params.get(f"{k1}.bias")
-        w2, b2 = params[f"{k2}.weight"], params.get(f"{k2}.bias")
-        packed = None
-        cache = getattr(params, "cache", None)
-        if cache is not None and x.is_cuda:
-            key = ("resnet_block", k1, x.dtype, x.device)
-            if key not in cache:
-                cache[key] = pack_resnet_block(w1, b1, w2, b2, x.dtype)
-            packed = cache[key]
-        return fused_resnet_block(x.contiguous(), w1, b1, w2, b2, packed=packed)
-
     def res_block(params, x, prefix):
         k1 = f"{prefix}.conv_block.{i_conv1}"
         k2 = f"{prefix}.conv_block.{i_conv2}"
-        if use_kernel(x):
-            return res_block_kernel(params, x, k1, k2)
+        w1, b1 = params[f"{k1}.weight"], params.get(f"{k1}.bias")
+        w2, b2 = params[f"{k2}.weight"], params.get(f"{k2}.bias")
+        if RB.fusable(x, w1, w2, norm_type=norm_type, pad_type=pad_type):
+            packed = cached(params, ("resnet_block", k1, x.dtype, x.device),
+                            lambda: pack_resnet_block(w1, b1, w2, b2, x.dtype))
+            return fused_resnet_block(x.contiguous(), w1, b1, w2, b2, packed=packed)
         p = 0 if has_pad else 1
         h = F.pad2d(x, 1, mode=pad_type) if has_pad else x
         h = F.relu(norm(params, conv(params, h, k1, pad=p), f"{prefix}.conv_block.{i_conv1 + 1}"))

@@ -6,54 +6,41 @@ upsample chain -> HR convs (+ optional final act).  An RRDB is nr
 ResidualDenseBlock_5C with out*0.2 + x; mESRGAN checkpoints are remapped
 to the flattened layout (remaps.mod_to_normal) and run the same forward.
 
-Backends for the RDB (``cfg["backend"]``):
-  * ``kernel``: the fused CUDA RDB (ops/rdb.py); requires leakyrelu, no
-    norm layers and biased convs.  On a CPU tensor the wrapper runs its
-    plain version.
-  * ``torch``: the plain gather form, one cuDNN conv per dense step.
-  * ``scatter``: the plain form with the convs regrouped by source
-    (:func:`_rdb5c_scatter`), an opt-in regrouping as in the JAX package,
-    not a kernel; parameter-free activations without norm only.
-  * ``auto`` (default): ``kernel`` for every CUDA tensor in the
-    configuration the kernel covers, else ``torch``.  Norm layers and
-    prelu/swish take the plain path, as they take XLA's in the JAX
-    package.
-With ``INNFER_RDB_CHAIN=1`` in the environment (read at each trunk call,
-default off, as in the JAX package) the ``kernel``/``auto`` trunk runs as
-one ``fused_rrdb_trunk``: nb*nr chain-mode RDB launches on persistent
-workspaces, each RRDB's residual fused into its last RDB.
+An RDB runs on the fused CUDA kernel (ops/rdb.py) wherever
+``rdb.fusable`` holds (a CUDA tensor, fp32 or bf16, biased convs,
+LeakyReLU and no norm layers), else on the plain gather form
+(:func:`_rdb5c`): norm layers and prelu/swish take the plain path, as they
+take XLA's in the JAX package.  With ``INNFER_RDB_CHAIN=1`` in the
+environment (read at each trunk call, default off, as in the JAX package)
+a trunk whose RDBs are fusable runs as one ``fused_rrdb_trunk``: nb*nr
+chain-mode RDB launches on persistent workspaces, each RRDB's residual
+fused into its last RDB.
 
 Both residuals multiply by 0.2 in the activation dtype (``res_scale``), as
 the JAX package's ``jnp.asarray(0.2, x.dtype)`` does.  The tail takes the
-JAX package's structure (``innfer_tpu/models/rrdb.py:304-326``): upconv
-blocks LR-collapsed and the last block with the HR convs in phase space
-where the predicates of ``models/common.py`` say.  evsrgan (convtype
-'Conv3D', :func:`_build_3d`) runs every conv as a Conv3d on NDHWC clips,
-at the library level only.
+JAX package's structure (``innfer_tpu/models/rrdb.py:304-326``, run by
+``common.sr_tail``): upconv blocks LR-collapsed and the last block with
+the HR convs in phase space where the predicates of ``models/common.py``
+say.  evsrgan (convtype 'Conv3D', :func:`_build_3d`) runs every conv as a
+Conv3d on NDHWC clips, at the library level only.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import torch
 
 from innfer_tpu_torch.checkpoint.remaps import mod_to_normal
 from innfer_tpu_torch.models import common as C
-from innfer_tpu_torch.models.base import ModelDef
+from innfer_tpu_torch.models.base import ModelDef, cached
 from innfer_tpu_torch.models.common import _outm
 from innfer_tpu_torch.nn import functional as F
 from innfer_tpu_torch.nn import resize as R
-from innfer_tpu_torch.ops.rdb import (PackedRDB, fused_rdb, fused_rrdb_trunk,
-                                      pack_rdb, res_scale)
+from innfer_tpu_torch.ops import rdb as RDB
+from innfer_tpu_torch.ops.rdb import PackedRDB, fused_rdb, fused_rrdb_trunk, pack_rdb, res_scale
 
-_BACKENDS = ("auto", "kernel", "torch", "scatter")
 _PLAIN_ACTS = ("relu", "leakyrelu", "lrelu", "tanh", "sigmoid")
-
-
-def _simple(act_type: str, norm_type) -> bool:
-    """No norm layers and a parameter-free activation."""
-    return norm_type in (None, "none") and act_type in _PLAIN_ACTS
 
 
 def _rdb5c(params, x: torch.Tensor, prefix: str, *, act_type: str,
@@ -86,67 +73,18 @@ def _rdb5c(params, x: torch.Tensor, prefix: str, *, act_type: str,
     return x5 * res_scale(x.dtype) + x
 
 
-def _rdb5c_scatter(params, x: torch.Tensor, prefix: str, *, act_type: str,
-                   plus: bool) -> torch.Tensor:
-    """The RDB with its convs regrouped BY SOURCE, as
-    ``innfer_tpu/models/rrdb.py::_rdb5c_scatter``: the same function as the
-    gather form, summed in another order.  conv_k is linear in its input
-    slices, so for each source s (x, x1..x4) one conv computes source s's
-    contributions to every later target (Cout 192/160/128/96/64 at nf=64,
-    gc=32); contributions accumulate per target in fp32, and each target's
-    bias and activation apply once all its sources have scattered."""
-    nf = x.shape[-1]
-    ws = [params[f"{prefix}.conv{k}.0.weight"] for k in range(1, 6)]
-    bs = [params.get(f"{prefix}.conv{k}.0.bias") for k in range(1, 6)]
-    gc = int(ws[0].shape[0])
-    sws = []
-    for s in range(5):
-        lo = 0 if s == 0 else nf + (s - 1) * gc
-        width = nf if s == 0 else gc
-        sws.append(torch.cat([ws[k][:, lo:lo + width] for k in range(s, 5)], dim=0))
-    pre = [None] * 5
-    src, x2 = x, None
-    for s in range(5):
-        contrib = F.conv2d(src, sws[s], padding=1, out_dtype=torch.float32)
-        off = 0
-        for k in range(s, 5):
-            width = gc if k < 4 else nf
-            piece = contrib[..., off:off + width]
-            pre[k] = piece if pre[k] is None else pre[k] + piece
-            off += width
-        if s < 4:
-            p = pre[s] if bs[s] is None else pre[s] + bs[s].float()
-            a = F.act(act_type, p).to(x.dtype)
-            if plus:
-                # the ESRGAN+ cross-residuals change the post-activation
-                # sources x2 and x4 (RRDBNet_arch.py:155-160)
-                if s == 1:
-                    a = a + F.conv2d(x, params[f"{prefix}.conv1x1.weight"])
-                    x2 = a
-                elif s == 3:
-                    a = a + x2
-            src = a
-    x5 = (pre[4] if bs[4] is None else pre[4] + bs[4].float()).to(x.dtype)
-    return x5 * res_scale(x.dtype) + x
-
-
 def _rdb_params(params, prefix: str, plus: bool):
-    weights = [params[f"{prefix}.conv{c}.0.weight"] for c in range(1, 6)]
-    biases = [params[f"{prefix}.conv{c}.0.bias"] for c in range(1, 6)]
+    weights = [params.get(f"{prefix}.conv{c}.0.weight") for c in range(1, 6)]
+    biases = [params.get(f"{prefix}.conv{c}.0.bias") for c in range(1, 6)]
     w1 = params[f"{prefix}.conv1x1.weight"] if plus else None
     return weights, biases, w1
 
 
-def _packed(params, prefix: str, x: torch.Tensor, plus: bool) -> Optional[PackedRDB]:
-    """The kernel layout of one RDB's weights, cached on the ParamDict per
-    dtype and device (None for a CPU tensor or a plain dict)."""
-    cache = getattr(params, "cache", None)
-    if cache is None or not x.is_cuda:
-        return None
-    key = ("rdb", prefix, x.dtype, x.device)
-    if key not in cache:
-        cache[key] = pack_rdb(*_rdb_params(params, prefix, plus), x.dtype)
-    return cache[key]
+def _packed(params, prefix: str, x: torch.Tensor, plus: bool) -> PackedRDB:
+    """The kernel layout of one RDB's weights, cached per activation dtype
+    and device."""
+    return cached(params, ("rdb", prefix, x.dtype, x.device),
+                  lambda: pack_rdb(*_rdb_params(params, prefix, plus), x.dtype))
 
 
 def _rdb5c_kernel(params, x: torch.Tensor, prefix: str, *,
@@ -157,8 +95,10 @@ def _rdb5c_kernel(params, x: torch.Tensor, prefix: str, *,
                      conv1x1_w=w1, packed=_packed(params, prefix, x, plus))
 
 
-def _kernel_config_ok(act_type: str, norm_type) -> bool:
-    return act_type in ("leakyrelu", "lrelu") and norm_type in (None, "none")
+def _fusable(params, x: torch.Tensor, prefix: str, *, act_type: str, norm_type) -> bool:
+    """``rdb.fusable`` for the RDB at ``prefix``."""
+    weights, biases, _ = _rdb_params(params, prefix, False)
+    return RDB.fusable(x, weights, biases, act_type=act_type, norm_type=norm_type)
 
 
 def _rdb_names(nr: int):
@@ -168,48 +108,24 @@ def _rdb_names(nr: int):
 
 
 def _rrdb(params, x: torch.Tensor, prefix: str, *, nr: int, act_type: str,
-          plus: bool, backend: str = "auto", norm_type=None, conv_fn=None) -> torch.Tensor:
-    names = _rdb_names(nr)
-    biased = f"{prefix}.{names[0]}.conv1.0.bias" in params
-    if backend == "kernel":
-        if not (_kernel_config_ok(act_type, norm_type) and biased):
-            raise ValueError(
-                "backend='kernel' requires leakyrelu activation, no norm "
-                f"layers and biased convs; got act {act_type!r}, norm "
-                f"{norm_type!r}, biased={biased}")
-        fused = True
-    else:
-        fused = (backend == "auto" and x.is_cuda and biased
-                 and _kernel_config_ok(act_type, norm_type))
-    if backend == "scatter" and not _simple(act_type, norm_type):
-        raise ValueError(
-            "backend='scatter' requires a parameter-free activation and no "
-            f"norm layers; got act {act_type!r}, norm {norm_type!r}")
+          plus: bool, norm_type=None, conv_fn=None) -> torch.Tensor:
     out = x
-    for name in names:
-        if fused:
-            out = _rdb5c_kernel(params, out, f"{prefix}.{name}", plus=plus)
-        elif backend == "scatter":
-            out = _rdb5c_scatter(params, out, f"{prefix}.{name}",
-                                 act_type=act_type, plus=plus)
+    for name in _rdb_names(nr):
+        p = f"{prefix}.{name}"
+        if _fusable(params, out, p, act_type=act_type, norm_type=norm_type):
+            out = _rdb5c_kernel(params, out, p, plus=plus)
         else:
-            out = _rdb5c(params, out, f"{prefix}.{name}", act_type=act_type,
-                         plus=plus, norm_type=norm_type, conv_fn=conv_fn)
+            out = _rdb5c(params, out, p, act_type=act_type, plus=plus,
+                         norm_type=norm_type, conv_fn=conv_fn)
     return out * res_scale(x.dtype) + x
 
 
-def _use_chain(params, x: torch.Tensor, *, nr: int, act_type: str, norm_type,
-               backend: str) -> bool:
+def _use_chain(params, x: torch.Tensor, *, nr: int, act_type: str, norm_type) -> bool:
     """The chain gate of innfer_tpu/models/rrdb.py:270-276: opted in with
-    INNFER_RDB_CHAIN=1, a kernel backend, biased convs, the kernel's
-    configuration (leakyrelu, no norm), and a CUDA tensor (or
-    backend='kernel', whose CPU path runs the same chain over the plain
-    versions)."""
+    INNFER_RDB_CHAIN=1, and the trunk's first RDB fusable."""
     return (os.environ.get("INNFER_RDB_CHAIN", "0") == "1"
-            and backend in ("auto", "kernel")
-            and f"model.1.sub.0.{_rdb_names(nr)[0]}.conv1.0.bias" in params
-            and _kernel_config_ok(act_type, norm_type)
-            and (x.is_cuda or backend == "kernel"))
+            and _fusable(params, x, f"model.1.sub.0.{_rdb_names(nr)[0]}",
+                         act_type=act_type, norm_type=norm_type))
 
 
 def _trunk_chain(params, x: torch.Tensor, *, nb: int, nr: int,
@@ -221,9 +137,7 @@ def _trunk_chain(params, x: torch.Tensor, *, nb: int, nr: int,
     weights = [[wb[0] for wb in row] for row in per_rdb]
     biases = [[wb[1] for wb in row] for row in per_rdb]
     w1s = [[wb[2] for wb in row] for row in per_rdb] if plus else None
-    packed = None
-    if x.is_cuda:
-        packed = [[_packed(params, p, x, plus) for p in row] for row in prefixes]
+    packed = [[_packed(params, p, x, plus) for p in row] for row in prefixes]
     return fused_rrdb_trunk(x.contiguous(), weights, biases, nb=nb, nr=nr,
                             gc=weights[0][0][0].shape[0], plus=plus,
                             conv1x1_ws=w1s, packed=packed)
@@ -243,25 +157,15 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
     if norm_type == "none":
         norm_type = None
     conv_mode = cfg.get("mode", "CNA")
-    backend = cfg.get("backend", "auto")
     if norm_type not in (None, "batch", "instance"):
         raise NotImplementedError(f"normalization layer [{norm_type}] is not found")
     convtype = cfg.get("convtype", "Conv2D")
     if convtype not in ("Conv2D", "Conv3D"):
         raise NotImplementedError(f"convtype {convtype} not supported")
-    if backend not in _BACKENDS:
-        raise ValueError(f"backend must be one of {_BACKENDS}; got {backend!r}")
-
-    _n_up, factor = C.n_upscale_blocks(upscale)
-    up_convs, hr0 = C.upsample_indices(upscale, up_mode)
     if convtype == "Conv3D":
         return _build_3d(cfg, nb=nb, nr=nr, act_type=act_type, plus=plus,
                          up_mode=up_mode, norm_type=norm_type, upscale=upscale,
-                         factor=factor, up_convs=up_convs, hr0=hr0,
                          finalact=finalact, outm=outm)
-    # the act submodule's flat index inside each upsample block:
-    # upconv [Up, conv@ci, act@ci+1]; pixelshuffle [conv@ci, PS, act@ci+2]
-    act_off = 1 if up_mode == "upconv" else 2
 
     def apply_trunk(params, x: torch.Tensor) -> torch.Tensor:
         """fea conv -> nb RRDBs -> LR conv -> shortcut sum: the whole
@@ -269,13 +173,12 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
         hybrid engine can run it untiled on the full image."""
         fea = C.conv3x3(params, x, "model.0")
         t = fea
-        if _use_chain(params, t, nr=nr, act_type=act_type, norm_type=norm_type,
-                      backend=backend):
+        if _use_chain(params, t, nr=nr, act_type=act_type, norm_type=norm_type):
             t = _trunk_chain(params, t, nb=nb, nr=nr, plus=plus)
         else:
             for i in range(nb):
                 t = _rrdb(params, t, f"model.1.sub.{i}", nr=nr, act_type=act_type,
-                          plus=plus, backend=backend, norm_type=norm_type)
+                          plus=plus, norm_type=norm_type)
         # LR_conv: mode/norm-dependent layout, flattened into the trunk
         # sequential at positional base nb (RRDBNet_arch.py:29)
         t = C.apply_conv_block(params, t, lambda j: f"model.1.sub.{nb + j}",
@@ -283,24 +186,8 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
         return fea + t  # ShortcutBlock (block.py:183-194)
 
     def apply_tail(params, h: torch.Tensor) -> torch.Tensor:
-        phase_tail = bool(up_convs) and C.phase_tail_ok(
-            params, f"model.{up_convs[-1]}", factor=factor, up_mode=up_mode,
-            act_type=act_type, finalact=finalact)
-        for ci in (up_convs[:-1] if phase_tail else up_convs):
-            h = C.apply_upsample_block(params, h, f"model.{ci}", mode=up_mode,
-                                       factor=factor, act_type=act_type,
-                                       act_key=f"model.{ci + act_off}")
-        if phase_tail:
-            h = C.apply_phase_tail(params, h, up_key=f"model.{up_convs[-1]}",
-                                   up_mode=up_mode, act_type=act_type, hr0=hr0,
-                                   finalact=finalact)
-            return _outm(h, outm)
-        h = C.apply_hr_convs(params, h, "model", hr0, act_type, act_key=f"model.{hr0 + 1}")
-        if finalact:
-            # outact follows HR_conv1 in the top-level sequential
-            # (RRDBNet_arch.py:45-48)
-            h = F.act(finalact, h, params=params, key=f"model.{hr0 + 3}")
-        return _outm(h, outm)
+        return _outm(C.sr_tail(params, h, "model", upscale=upscale, up_mode=up_mode,
+                               act_type=act_type, finalact=finalact), outm)
 
     def apply(params, x: torch.Tensor) -> torch.Tensor:
         return apply_tail(params, apply_trunk(params, x))
@@ -316,15 +203,14 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
         # adds 1/prod(earlier factors), the phase tail's HR convs <= 1 more;
         # 4 covers every scale (1/2/4/8)
         tail_halo=4,
-        # the fused RDB runs wherever auto/kernel meets its configuration
-        # (the JAX package's tile_quantum condition, rrdb.py:336-338)
-        trunk_kernel=(backend in ("auto", "kernel")
-                      and _kernel_config_ok(act_type, norm_type)),
+        # the fused RDB runs on the card in this configuration (the JAX
+        # package's tile_quantum condition, rrdb.py:336-338)
+        trunk_kernel=RDB.config_ok(act_type, norm_type),
     )
 
 
 def _build_3d(cfg, *, nb, nr, act_type, plus, up_mode, norm_type, upscale,
-              factor, up_convs, hr0, finalact, outm) -> ModelDef:
+              finalact, outm) -> ModelDef:
     """evsrgan: RRDBNet with Conv3d everywhere, on NDHWC video clips
     (``innfer_tpu/models/rrdb.py:355-410``).  The reference builds every
     conv_block as nn.Conv3d k3/pad1 (block.py:232-234) and upconv blocks
@@ -347,6 +233,8 @@ def _build_3d(cfg, *, nb, nr, act_type, plus, up_mode, norm_type, upscale,
             f"evsrgan act {act_type!r}: only parameter-free activations "
             "are supported on the Conv3D path")
 
+    _n_up, factor = C.n_upscale_blocks(upscale)
+    up_convs, hr0 = C.upsample_indices(upscale, up_mode)
     conv3 = lambda t, w, b=None: F.conv3d(t, w, b, padding=1)  # noqa: E731
 
     def apply(params, x: torch.Tensor) -> torch.Tensor:
@@ -355,7 +243,7 @@ def _build_3d(cfg, *, nb, nr, act_type, plus, up_mode, norm_type, upscale,
         t = fea
         for i in range(nb):
             t = _rrdb(params, t, f"model.1.sub.{i}", nr=nr, act_type=act_type,
-                      plus=False, backend="torch", conv_fn=conv3)
+                      plus=False, conv_fn=conv3)
         h = fea + conv3(t, *g(f"model.1.sub.{nb}"))
         for ci in up_convs:
             b_, d, hh, ww, c = h.shape
@@ -388,8 +276,6 @@ def build_mrrdb(cfg: Dict[str, Any]) -> ModelDef:
         "norm_type": None,
         "plus": False,
     }
-    if "backend" in cfg:
-        full["backend"] = cfg["backend"]
     model = build(full)
     model.name = "mrrdb_net"
     model.remap = mod_to_normal

@@ -15,7 +15,7 @@ scale multiplies in the activation dtype, as the JAX package's
 ``jnp.asarray(res_scale, x.dtype)``.  The tail takes ESRGAN's structure
 (``innfer_tpu/models/srresnet.py:82-101``): the last pixelshuffle block
 and the HR convs in phase space where ``models/common.phase_tail_ok``
-says.  The trunk runs no port kernel, so auto tiling stays on the tile
+says (``common.sr_tail``).  The trunk runs no port kernel, so auto tiling stays on the tile
 grid.
 """
 from __future__ import annotations
@@ -27,7 +27,6 @@ import torch
 from innfer_tpu_torch.models import common as C
 from innfer_tpu_torch.models.base import ModelDef
 from innfer_tpu_torch.models.common import _outm
-from innfer_tpu_torch.nn import functional as F
 
 
 def build(cfg: Dict[str, Any]) -> ModelDef:
@@ -47,9 +46,6 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
     if conv_mode not in ("CNA", "NAC", "CNAC"):
         raise NotImplementedError(f"Wrong conv mode [{conv_mode}]")
 
-    _n_up, factor = C.n_upscale_blocks(upscale)
-    up_convs, hr0 = C.upsample_indices(upscale, up_mode)
-    act_off = 1 if up_mode == "upconv" else 2
     # ResNetBlock: conv1's act is cleared under CNA, act+norm under CNAC
     # (SRResNet_arch.py:73-78)
     c1_act = act_type if conv_mode == "NAC" else None
@@ -75,22 +71,8 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
         return fea + t
 
     def apply_tail(params, h: torch.Tensor) -> torch.Tensor:
-        phase_tail = bool(up_convs) and C.phase_tail_ok(
-            params, f"model.{up_convs[-1]}", factor=factor, up_mode=up_mode,
-            act_type=act_type, finalact=finalact)
-        for ci in (up_convs[:-1] if phase_tail else up_convs):
-            h = C.apply_upsample_block(params, h, f"model.{ci}", mode=up_mode,
-                                       factor=factor, act_type=act_type,
-                                       act_key=f"model.{ci + act_off}")
-        if phase_tail:
-            h = C.apply_phase_tail(params, h, up_key=f"model.{up_convs[-1]}",
-                                   up_mode=up_mode, act_type=act_type, hr0=hr0,
-                                   finalact=finalact)
-            return _outm(h, outm)
-        h = C.apply_hr_convs(params, h, "model", hr0, act_type, act_key=f"model.{hr0 + 1}")
-        if finalact:
-            h = F.act(finalact, h, params=params, key=f"model.{hr0 + 3}")
-        return _outm(h, outm)
+        return _outm(C.sr_tail(params, h, "model", upscale=upscale, up_mode=up_mode,
+                               act_type=act_type, finalact=finalact), outm)
 
     def apply(params, x: torch.Tensor) -> torch.Tensor:
         return apply_tail(params, apply_trunk(params, x))

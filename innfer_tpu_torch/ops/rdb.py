@@ -1,6 +1,7 @@
 """Fused Residual Dense Block (RDB_5C): the hand-written CUDA kernel
-(``csrc/rdb.cu`` on the shared conv core ``csrc/conv3x3_tc.cuh``: bf16 on
+(``csrc/rdb.cu`` on the TMA conv core ``csrc/conv3x3_tma.cuh``: bf16 on
 the tensor cores, fp32 on the FP32 pipes) and its plain PyTorch version.
+``models/rrdb.py`` runs an RDB on it wherever :func:`fusable` holds.
 
 Replaces ``innfer_tpu/ops/pallas/rdb.py::fused_rdb``.  One RDB computes
 
@@ -70,6 +71,30 @@ def pack_rdb(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
     if conv1x1_w is not None:
         w1 = conv1x1_w.to(dtype)[:, :, 0, 0].t().contiguous()
     return PackedRDB(w.contiguous(), b.contiguous(), w1)
+
+
+def config_ok(act_type: Optional[str], norm_type: Optional[str]) -> bool:
+    """Whether the kernel computes an RDB of this configuration: LeakyReLU
+    and no norm layers (prelu/swish and norm layers take the plain path,
+    as they take XLA's in the JAX package)."""
+    return act_type in ("leakyrelu", "lrelu") and norm_type in (None, "none")
+
+
+def takes(x: torch.Tensor, weights: Sequence[torch.Tensor],
+          biases: Sequence[Optional[torch.Tensor]], *, act_type: Optional[str],
+          norm_type: Optional[str]) -> bool:
+    """Whether the kernel takes the RDB of ``x`` (NHWC) on whatever device:
+    fp32 or bf16, five biased convs and :func:`config_ok`."""
+    return (x.dim() == 4 and x.dtype in _DTYPE_CODE and config_ok(act_type, norm_type)
+            and len(weights) == len(biases) == 5 and all(b is not None for b in biases))
+
+
+def fusable(x: torch.Tensor, weights: Sequence[torch.Tensor],
+            biases: Sequence[Optional[torch.Tensor]], *, act_type: Optional[str],
+            norm_type: Optional[str]) -> bool:
+    """:func:`takes`, on a CUDA tensor: the gate of ``models/rrdb.py``,
+    which runs the plain gather form elsewhere (a 5-D Conv3D clip too)."""
+    return x.is_cuda and takes(x, weights, biases, act_type=act_type, norm_type=norm_type)
 
 
 def _check(x, weights, biases, plus, conv1x1_w, contiguous=True):

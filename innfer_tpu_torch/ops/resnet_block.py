@@ -1,7 +1,8 @@
 """Fused CycleGAN ResnetBlock: the hand-written CUDA kernel
 (``csrc/resnet_block.cu`` on the shared conv core ``csrc/conv3x3_tc.cuh``:
 bf16 on the tensor cores, fp32 on the FP32 pipes) and its plain PyTorch
-version.
+version.  ``models/resnet.py`` runs a block on it wherever :func:`fusable`
+holds.
 
 Replaces ``innfer_tpu/ops/pallas/resnet_block.py::fused_resnet_block``.
 One block (reference ResNet_arch.py build_conv_block, instance norm,
@@ -20,7 +21,7 @@ goes into IN in fp32 without a rounding to the activation dtype.
 Layouts follow the JAX package: x is NHWC (B, H, W, C); weights stay OIHW
 as in the checkpoint, (C, C, 3, 3); biases are (C,) fp32 or None.
 
-The kernel's gate (:func:`resnet_block_ok`): fp32 or bf16, H and W >= 2
+The kernel's shapes (:func:`resnet_block_ok`): fp32 or bf16, H and W >= 2
 (reflect padding needs two rows and columns), C a multiple of 32 (the
 published 4*ngf = 256 and the goldens' 32).  Unlike the TPU kernel it takes
 any W and any H*W: ``w % 16`` and ``h*w <= 8192`` were Mosaic's layout and
@@ -66,6 +67,24 @@ def resnet_block_ok(shape: Tuple[int, ...], dtype: torch.dtype) -> bool:
     """Whether the kernel takes an NHWC activation of this shape and dtype."""
     return (len(shape) == 4 and dtype in _DTYPE_CODE and shape[1] >= 2
             and shape[2] >= 2 and shape[3] % CH_GROUP == 0)
+
+
+def takes(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
+          norm_type: str, pad_type: str) -> bool:
+    """Whether the kernel takes the block of ``x`` (NHWC) on whatever
+    device: instance norm, reflect padding, :func:`resnet_block_ok` and
+    two (C, C, 3, 3) convs."""
+    c = x.shape[-1]
+    return (norm_type in ("IN", "instance") and pad_type == "reflect"
+            and resnet_block_ok(tuple(x.shape), x.dtype)
+            and all(tuple(w.shape) == (c, c, 3, 3) for w in (w1, w2)))
+
+
+def fusable(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
+            norm_type: str, pad_type: str) -> bool:
+    """:func:`takes`, on a CUDA tensor: the gate of ``models/resnet.py``,
+    which runs the plain composition elsewhere."""
+    return x.is_cuda and takes(x, w1, w2, norm_type=norm_type, pad_type=pad_type)
 
 
 def _check(x, w1, b1, w2, b2):

@@ -394,7 +394,6 @@ class InferenceSession:
         tile_batch: int = 8,
         scale: Optional[int] = None,
         device: DeviceLike = None,
-        backend: Optional[str] = None,
         fused_chain: bool = False,
         mesh: Optional[Mesh] = None,
         spatial: bool = False,
@@ -444,7 +443,7 @@ class InferenceSession:
                 model, params = load_model(
                     path, arch=self.presets.arch, scale=sc,
                     param_dtype=self.compute_dtype, device=self.device,
-                    backend=backend, strict=self.presets.strict)
+                    strict=self.presets.strict)
                 if model.cfg.get("convtype") == "Conv3D":
                     raise ValueError(
                         "evsrgan (Conv3D) is a video network with 5D NDHWC "

@@ -322,7 +322,7 @@ class TiledRunner:
         The JAX gate also asks for bf16, because its Pallas kernel fires
         only in bf16; the port's kernel runs fp32 as well, so this gate
         does not.  A trunk of plain ops (SRResNet, ESRGAN with norm layers
-        or prelu/swish, backend='torch') keeps the tile grid, and an
+        or prelu/swish) keeps the tile grid, and an
         instance-norm trunk keeps the per-tile statistics the JAX package
         computes.  As in the JAX package, a runner on a mesh never
         upgrades: its tile groups are what it splits over the devices."""

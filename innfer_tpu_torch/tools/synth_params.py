@@ -11,7 +11,7 @@ and converter, so a synthetic model is built exactly as a checkpoint's is.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
@@ -240,15 +240,11 @@ def state(family: str, *, scale: int = 4, seed: int = 0, **kw) -> StateDict:
 
 
 def build(family: str, *, scale: int = 4, dtype: torch.dtype = torch.float32, seed: int = 0,
-          device: DeviceLike, backend: Optional[str] = None, **kw):
+          device: DeviceLike, **kw):
     """(ModelDef, params on ``device``) for a random-init model of the
     given family, as the JAX package's ``build`` makes it.  ``device`` has
-    no default: pass the card, or ``"cpu"``.  ``backend`` selects the
-    kernel backend (auto | kernel | torch, models/rrdb.py and
-    models/resnet.py)."""
+    no default: pass the card, or ``"cpu"``."""
     sd = state(family, scale=scale, seed=seed, **kw)
     spec = {"type": STATES[family][1], **{k: v for k, v in kw.items() if k != "norm"}}
     cfg = get_network_config(spec, scale if family in SR_FAMILIES else 1)
-    if backend is not None:
-        cfg["backend"] = backend
     return load_model_from_state(sd, cfg, param_dtype=dtype, device=device)

@@ -81,7 +81,7 @@ def _out_mp(model):
 def test_fp32_line_holds_the_kernel_path_to_its_plain_versions(capsys):
     line = B.main(_argv("cyclegan", "--dtype", "fp32"))
     assert line["fidelity_bar_db"] == B.FP32_DB and line["fidelity_db"] == "inf"
-    assert "backend='torch'" in line["fidelity_against"]
+    assert "ops.plain_path" in line["fidelity_against"]
 
 
 @pytest.mark.parametrize("model", ["esrgan", "chain"])
@@ -106,8 +106,8 @@ def _perturb_timed_step(monkeypatch, scale):
     built = []
     real = B.build_step
 
-    def build(args, dtype, device, backend=None):
-        step = real(args, dtype, device, backend)
+    def build(args, dtype, device):
+        step = real(args, dtype, device)
         if not built:
             run, g = step.run, torch.Generator().manual_seed(0)
 

@@ -18,6 +18,7 @@ from innfer_tpu.config.defaults import get_network_config as jax_config
 from innfer_tpu.loader import load_model_from_state as jax_load_from_state
 from innfer_tpu.ops.pallas.rdb import fused_rrdb_trunk as jax_trunk
 from innfer_tpu_torch.models import get_network, params_from_jax
+from innfer_tpu_torch.ops import rdb as RDB
 from innfer_tpu_torch.ops.rdb import (fused_rdb_padded, fused_rrdb_trunk,
                                       rrdb_trunk_reference)
 from tools import synth_params as SP
@@ -123,15 +124,17 @@ def test_chain_gate_fires_in_the_model(monkeypatch, plus):
 
     monkeypatch.setattr(M, "fused_rrdb_trunk", spy)
     monkeypatch.delenv("INNFER_RDB_CHAIN", raising=False)
-    kernel = get_network(jax_config(dict(spec, backend="kernel"), 4))
-    torch_model = get_network(jax_config(dict(spec, backend="torch"), 4))
-    ref = kernel.apply_trunk(params, x)
+    model = get_network(jax_config(spec, 4))
+    # the card's answer on the CPU: the kernels' wrappers run their plain versions
+    monkeypatch.setattr(RDB, "fusable", RDB.takes)
+    ref = model.apply_trunk(params, x)
     assert calls == []  # off by default
     monkeypatch.setenv("INNFER_RDB_CHAIN", "1")
-    out = kernel.apply_trunk(params, x)
+    out = model.apply_trunk(params, x)
     assert calls == [2], "chain gate did not fire"
-    torch_model.apply_trunk(params, x)
-    assert calls == [2], "backend='torch' must not take the chain"
+    monkeypatch.setattr(RDB, "fusable", lambda *a, **k: False)
+    model.apply_trunk(params, x)
+    assert calls == [2], "a trunk the kernel does not take must not take the chain"
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(out.numpy(), np.asarray(jm.apply_trunk(jp, jnp.asarray(x.numpy()))),
                                atol=2e-5, rtol=2e-5)

@@ -84,7 +84,7 @@ def test_bias_free_bf16_conv_matches_jax():
 
 @pytest.mark.parametrize("part", ["trunk", "apply"])
 def test_bf16_esrgan_torch_backend_matches_jax_model(part):
-    """A small 4x ESRGAN (nb=1, nf=32, gc=16) in bf16, backend='torch',
+    """A small 4x ESRGAN (nb=1, nf=32, gc=16) in bf16 on the plain path,
     with the JAX package's weights through params_from_jax and biases that
     are NOT bf16-representable.  The trunk rounds at the JAX package's
     points now: 100% of its outputs are identical (94.0% when the bias was
@@ -97,7 +97,7 @@ def test_bf16_esrgan_torch_backend_matches_jax_model(part):
     spec = {"type": "esrgan", "nb": 1, "nf": 32, "gc": 16}
     state = SP.esrgan_state(nb=1, nf=32, gc=16, scale=4, seed=5)
     jm, jp = jax_load_from_state(state, jax_config(spec, 4))
-    tm = get_network(jax_config(dict(spec, backend="torch"), 4))
+    tm = get_network(jax_config(spec, 4))
     tp = params_from_jax({k: np.asarray(v) for k, v in jp.items()})
     x = np.random.default_rng(1).random((1, 16, 20, 3), np.float32)
     fn_j = jm.apply_trunk if part == "trunk" else jm.apply

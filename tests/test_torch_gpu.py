@@ -19,6 +19,7 @@ tiles (W, H not multiples of the 64-column tile and of fused_rdb's 16- and
 multiples of the 16-channel chunk or of a wgmma width, and give
 fused_rdb's persistent grid fewer tiles than SMs and many more.
 """
+import contextlib
 import math
 import time
 
@@ -31,6 +32,9 @@ from innfer_tpu_torch.models import common as C
 from innfer_tpu_torch.models import convert_state, get_network
 from innfer_tpu_torch.nn import functional as F
 from innfer_tpu_torch.nn.functional import true_fp32
+from innfer_tpu_torch.ops import plain_path
+from innfer_tpu_torch.ops import rdb as RDB
+from innfer_tpu_torch.ops import resnet_block as RB
 from innfer_tpu_torch.ops.rdb import (fused_rdb, fused_rdb_padded, fused_rrdb_trunk,
                                       rdb_padded_reference, rdb_reference, res_scale,
                                       rrdb_trunk_reference)
@@ -73,8 +77,8 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, nf, gc, plus, hw)
 
 @pytest.mark.gpu
 def test_model_kernel_path_matches_torch_path_fp32(cuda_device):
-    """A small ESRGAN through backend auto (the kernel on CUDA) and torch,
-    in true fp32: >= 80 dB, the golden bar."""
+    """A small ESRGAN on the kernel (as the model chooses on CUDA) and
+    inside ``ops.plain_path``, in true fp32: >= 80 dB, the golden bar."""
     g = np.random.default_rng(3)
     state = {}
     nb, nf, gc = 2, 32, 16
@@ -94,16 +98,14 @@ def test_model_kernel_path_matches_torch_path_fp32(cuda_device):
     conv("model.10", 3, nf)
     x = torch.from_numpy(g.random((1, 40, 56, 3), np.float32)).to(cuda_device)
     outs = {}
-    for backend in ("auto", "torch"):
-        cfg = get_network_config({"type": "esrgan", "nb": nb, "nf": nf, "gc": gc,
-                                  "backend": backend}, 4)
-        model = get_network(cfg)
-        params = convert_state(model, state, device=cuda_device)
+    model = get_network(get_network_config({"type": "esrgan", "nb": nb, "nf": nf, "gc": gc}, 4))
+    params = convert_state(model, state, device=cuda_device)
+    for path in ("kernel", "plain"):
         before = fused_rdb.launches
-        with torch.no_grad():
-            outs[backend] = model.apply(params, x).cpu().numpy()
-        assert fused_rdb.launches - before == (nb * 3 if backend == "auto" else 0)
-    mse = np.mean((outs["auto"].astype(np.float64) - outs["torch"]) ** 2)
+        with torch.no_grad(), plain_path() if path == "plain" else contextlib.nullcontext():
+            outs[path] = model.apply(params, x).cpu().numpy()
+        assert fused_rdb.launches - before == (nb * 3 if path == "kernel" else 0)
+    mse = np.mean((outs["kernel"].astype(np.float64) - outs["plain"]) ** 2)
     assert 10 * np.log10(1.0 / mse) >= 80
 
 
@@ -242,38 +244,41 @@ def _cyclegan_state(g, n_blocks=2, ngf=8):
 
 @pytest.mark.gpu
 def test_cyclegan_kernel_path_matches_torch_path_fp32(cuda_device):
-    """A small CycleGAN through backend auto (the kernel on CUDA) and torch,
-    in true fp32: >= 80 dB, the golden bar; one launch per block."""
+    """A small CycleGAN on the kernel (as the model chooses on CUDA) and
+    inside ``ops.plain_path``, in true fp32: >= 80 dB, the golden bar; one
+    launch per block."""
     g = np.random.default_rng(5)
     state = _cyclegan_state(g)
     x = torch.from_numpy(g.random((1, 44, 60, 3), np.float32) * 2 - 1).to(cuda_device)
     outs = {}
-    for backend in ("auto", "torch"):
-        model = get_network(get_network_config(
-            {"type": "resnet_6blocks", "n_blocks": 2, "backend": backend}, 1))
-        params = convert_state(model, state, device=cuda_device)
+    model = get_network(get_network_config({"type": "resnet_6blocks", "n_blocks": 2}, 1))
+    params = convert_state(model, state, device=cuda_device)
+    for path in ("kernel", "plain"):
         before = fused_resnet_block.launches
-        with torch.no_grad():
-            outs[backend] = model.apply(params, x).cpu().numpy()
-        assert fused_resnet_block.launches - before == (2 if backend == "auto" else 0)
-    mse = np.mean((outs["auto"].astype(np.float64) - outs["torch"]) ** 2)
+        with torch.no_grad(), plain_path() if path == "plain" else contextlib.nullcontext():
+            outs[path] = model.apply(params, x).cpu().numpy()
+        assert fused_resnet_block.launches - before == (2 if path == "kernel" else 0)
+    mse = np.mean((outs["kernel"].astype(np.float64) - outs["plain"]) ** 2)
     assert 10 * np.log10(1.0 / mse) >= 80
 
 
 @pytest.mark.gpu
-def test_kernel_backend_raises_where_the_kernels_do_not_reach(cuda_device):
-    cfg = get_network_config({"type": "resnet_9blocks", "backend": "kernel",
-                              "norm_type": "batch"}, 1)
-    with pytest.raises(ValueError, match="backend='kernel' requires"):
-        get_network(cfg)
-    from innfer_tpu_torch.models.rrdb import _rrdb
-
-    params = {"model.1.sub.0.RDB1.conv1.0.bias": torch.zeros(8, device=cuda_device)}
-    with pytest.raises(ValueError, match="backend='kernel' requires"):
-        _rrdb(params, torch.zeros(1, 8, 8, 16, device=cuda_device), "model.1.sub.0", nr=3,
-              act_type="relu", plus=False, backend="kernel")
+def test_fusable_refuses_on_the_card_what_the_kernels_do_not_reach(cuda_device):
+    """On real CUDA tensors the gates refuse what the kernels do not
+    compute, and a wrapper called past its gate raises."""
+    w = torch.zeros(32, 32, 3, 3, device=cuda_device)
+    x = torch.zeros(1, 8, 8, 32, device=cuda_device)
+    assert RB.fusable(x, w, w, norm_type="instance", pad_type="reflect")
+    assert not RB.fusable(x, w, w, norm_type="batch", pad_type="reflect")
+    ws = [torch.zeros(8 if c < 5 else 16, 16 + (c - 1) * 8, 3, 3, device=cuda_device)
+          for c in range(1, 6)]
+    bs = [torch.zeros(w_.shape[0], device=cuda_device) for w_ in ws]
+    x = torch.zeros(1, 8, 8, 16, device=cuda_device)
+    assert RDB.fusable(x, ws, bs, act_type="leakyrelu", norm_type=None)
+    assert not RDB.fusable(x, ws, bs, act_type="relu", norm_type=None)
     x = torch.zeros(1, 8, 8, 48, device=cuda_device)  # C not a multiple of 32
     w = torch.zeros(48, 48, 3, 3, device=cuda_device)
+    assert not RB.fusable(x, w, w, norm_type="instance", pad_type="reflect")
     with pytest.raises(ValueError, match="C % 32"):
         fused_resnet_block(x, w, None, w, None)
 
@@ -1064,7 +1069,7 @@ def _ppon_block(dev, seed=5):
 @pytest.mark.parametrize("shape", [(1, 576, 960, 64), (2, 37, 101, 64), (1, 9, 70, 64),
                                    (1, 20, 12, 64), (1, 17, 70, 64), (3, 40, 52, 64)])
 @pytest.mark.parametrize("with_res", [False, True])
-def test_dilated_block_matches_plain_on_card(cuda_device, monkeypatch, shape, with_res):
+def test_dilated_block_matches_plain_on_card(cuda_device, shape, with_res):
     """fused_dilated_block at the PPON cell's trunk shape and at ragged ones
     (c1's 8-row and 64-column tiles and the dilated convs' 16 x 24 tiles in
     part; an image narrower than the dilated convs' 40-column halo box, so
@@ -1091,8 +1096,8 @@ def test_dilated_block_matches_plain_on_card(cuda_device, monkeypatch, shape, wi
     with torch.no_grad():
         out = DB.fused_dilated_block(x, w, b, res=res, packed=DB.pack_block(w, b))
         ref = DB.dilated_block_reference(x, w, b, res=res, acc=torch.float64)
-        monkeypatch.setattr(DB, "fusable", lambda *a, **k: False)
-        plain = PP._res_block_32(params, x, prefix, res=res)
+        with plain_path():
+            plain = PP._res_block_32(params, x, prefix, res=res)
     torch.cuda.synchronize()
     assert DB.fused_dilated_block.launches - before == 1
     share = lambda a, c: (a == c).float().mean().item()  # noqa: E731

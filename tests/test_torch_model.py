@@ -22,6 +22,7 @@ from innfer_tpu_torch.checkpoint.detect import load_checkpoint
 from innfer_tpu_torch.config.defaults import get_network_config
 from innfer_tpu_torch.loader import load_model, load_model_from_state
 from innfer_tpu_torch.models import cast_params, get_network, params_from_jax
+from innfer_tpu_torch.ops import rdb as RDB
 from innfer_tpu_torch.ops.rdb import fused_rdb
 from tools import synth_params as SP
 
@@ -83,7 +84,7 @@ def test_bf16_trunk_rounds_like_the_jax_package(nb):
     state = {k: (v.astype(jnp.bfloat16).astype(np.float32) if v.ndim == 1 else v)
              for k, v in state.items()}
     jm, jp = jax_load_from_state(state, jax_config(spec, 4))
-    tm = get_network(jax_config(dict(spec, backend="torch"), 4))
+    tm = get_network(jax_config(spec, 4))
     tp = params_from_jax({k: np.asarray(v) for k, v in jp.items()})
     x = np.random.default_rng(1).random((1, 24, 32, 3), np.float32)
     ref = np.asarray(jm.apply_trunk(jax_cast_params(jp, jnp.bfloat16),
@@ -95,17 +96,18 @@ def test_bf16_trunk_rounds_like_the_jax_package(nb):
     assert (d <= 2.0 ** -8 * np.maximum(np.abs(ref), 1)).all(), d.max()
 
 
-def test_kernel_backend_on_cpu_runs_the_plain_version():
-    """backend='kernel' on CPU tensors goes through the wrapper's plain
-    path: the same function as the torch backend, no launches."""
+def test_kernel_backend_on_cpu_runs_the_plain_version(monkeypatch):
+    """The kernel's route (``rdb.fusable`` patched to the card's answer) on
+    CPU tensors goes through the wrapper's plain version: the same function
+    as the model's plain gather form, no launches."""
     _jm, _jp, tm, tp = _pair()
-    spec = {"type": "esrgan", "nb": 2, "nf": 32, "gc": 16, "backend": "kernel"}
-    km = get_network(jax_config(spec, 4))
     x = torch.from_numpy(_x(seed=1))
+    plain = tm.apply(tp, x).numpy()
+    calls = []
+    monkeypatch.setattr(RDB, "fusable", lambda *a, **k: calls.append(1) or RDB.takes(*a, **k))
     before = fused_rdb.launches
-    np.testing.assert_allclose(km.apply(tp, x).numpy(), tm.apply(tp, x).numpy(),
-                               atol=1e-5, rtol=0)
-    assert fused_rdb.launches == before
+    np.testing.assert_allclose(tm.apply(tp, x).numpy(), plain, atol=1e-5, rtol=0)
+    assert len(calls) == 6 and fused_rdb.launches == before
 
 
 def _golden(name):
@@ -182,7 +184,7 @@ def test_configs_of_later_slices_raise(spec):
 @pytest.mark.parametrize("spec", [
     "esrgan", "esrgan-lite", "evsrgan", "mesrgan", "rrdb_net",
     {"type": "esrgan", "nb": 3, "nf": 16, "plus": True, "outm": "clamp"},
-    {"which_model_G": "mesrgan", "nb": 2, "backend": "torch"},
+    {"which_model_G": "mesrgan", "nb": 2},
 ])
 def test_config_defaults_equal_jax(spec):
     assert get_network_config(spec, 4) == jax_config(spec, 4)

@@ -40,6 +40,7 @@ from innfer_tpu_torch.config.defaults import get_network_config
 from innfer_tpu_torch.loader import load_model_from_state
 from innfer_tpu_torch.models import convert_state, get_network, params_from_jax
 from innfer_tpu_torch.nn import functional as F
+from innfer_tpu_torch.ops import resnet_block as RB
 from innfer_tpu_torch.ops.conv3x3 import n_tile
 from innfer_tpu_torch.ops.resnet_block import (fused_resnet_block, pack_resnet_block,
                                                resnet_block_ok,
@@ -257,12 +258,15 @@ def _pair(**cfg_kw):
     return jm, jp, tm, params_from_jax({k: np.asarray(v) for k, v in jp.items()}, tm)
 
 
-@pytest.mark.parametrize("backend", ["torch", "kernel"])
-def test_matches_jax_model_fp32_through_params_from_jax(backend):
+@pytest.mark.parametrize("route", ["torch", "kernel"])
+def test_matches_jax_model_fp32_through_params_from_jax(route, monkeypatch):
     """The deconv weights cross from the JAX layout (flipped (kh,kw,I,O))
-    back to the checkpoint's (I,O,kh,kw); the kernel backend on the CPU
-    runs the block's plain version."""
-    jm, jp, tm, tp = _pair(backend=backend)
+    back to the checkpoint's (I,O,kh,kw); the kernel's route
+    (``resnet_block.fusable`` patched to the card's answer) on the CPU runs
+    the block's plain version."""
+    if route == "kernel":
+        monkeypatch.setattr(RB, "fusable", RB.takes)
+    jm, jp, tm, tp = _pair()
     assert tm.transposed_keys == jm.transposed_keys
     state = SP.cyclegan_state(n_blocks=2, ngf=8, seed=4)
     for key in (r"model.12.weight", r"model.15.weight"):
@@ -292,13 +296,6 @@ def test_upconv_variant_matches_jax_model_fp32():
                                np.asarray(jm.apply(jp, jnp.asarray(x))), atol=1e-4, rtol=0)
 
 
-def test_kernel_backend_refuses_a_configuration_it_does_not_cover():
-    for spec in ({"norm_type": "batch"}, {"padding_type": "zero"}):
-        cfg = get_network_config({"type": "resnet_9blocks", "backend": "kernel", **spec}, 1)
-        with pytest.raises(ValueError, match="backend='kernel' requires"):
-            get_network(cfg)
-
-
 def test_batch_norm_training_is_per_image():
     """ROADMAP queue C: train-mode BN reduces per image, so a batch of two
     images gives each image's own single-image result."""
@@ -312,7 +309,7 @@ def test_batch_norm_training_is_per_image():
 
 
 @pytest.mark.parametrize("spec", ["resnet_9blocks", "resnet_6blocks", "cg_6", "cg9",
-                                  {"type": "resnet_9", "ngf": 32, "backend": "torch"}])
+                                  {"type": "resnet_9", "ngf": 32}])
 def test_config_defaults_equal_jax(spec):
     assert get_network_config(spec, 1) == jax_config(spec, 1)
 

@@ -1,5 +1,5 @@
-"""The port's SR zoo (SRResNet, PAN, PPON, the ESRGAN norm/PReLU/Swish/
-scatter variants) against the reference goldens and the JAX package.
+"""The port's SR zoo (SRResNet, PAN, PPON, the ESRGAN norm/PReLU/Swish
+variants) against the reference goldens and the JAX package.
 
 Goldens (fp32, reference PyTorch outputs): >= 80 dB, PAN's nearest-mode
 goldens >= 70 dB (the JAX suite's bar, tests/test_model_parity_zoo.py:88),
@@ -39,6 +39,8 @@ from innfer_tpu_torch.loader import load_model, load_model_from_state
 from innfer_tpu_torch.models import cast_params, get_network, params_from_jax
 from innfer_tpu_torch.models import common as TC
 from innfer_tpu_torch.models import rrdb as RR
+from innfer_tpu_torch.ops import rdb as RDB
+from innfer_tpu_torch.ops import resnet_block as RB
 from innfer_tpu_torch.pipeline import InferenceSession
 from innfer_tpu_torch.tiling import engine as TE
 from tools import synth_params as SP
@@ -366,74 +368,6 @@ def test_bf16_fsa_attention_rounds_like_the_jax_package():
 
 
 # ---------------------------------------------------------------------------
-# The scatter RDB (contract of tests/test_rdb_scatter.py)
-# ---------------------------------------------------------------------------
-
-def _rdb_params(rng, nf, gc, plus=False, bias=True):
-    p = {}
-    for c in range(1, 6):
-        cin, cout = nf + (c - 1) * gc, gc if c < 5 else nf
-        p[f"B.conv{c}.0.weight"] = torch.from_numpy(
-            (rng.standard_normal((cout, cin, 3, 3)) / np.sqrt(9 * cin)).astype(np.float32))
-        if bias:
-            p[f"B.conv{c}.0.bias"] = torch.from_numpy(
-                (rng.standard_normal(cout) * 0.02).astype(np.float32))
-    if plus:
-        p["B.conv1x1.weight"] = torch.from_numpy(
-            (rng.standard_normal((gc, nf, 1, 1)) / np.sqrt(nf)).astype(np.float32))
-    return p
-
-
-@pytest.mark.parametrize("nf,gc", [(64, 32), (32, 16)])
-@pytest.mark.parametrize("plus", [False, True])
-def test_scatter_matches_gather_fp32(nf, gc, plus):
-    rng = np.random.default_rng(7)
-    p = _rdb_params(rng, nf, gc, plus=plus)
-    x = torch.from_numpy(rng.standard_normal((2, 17, 23, nf)).astype(np.float32))
-    g = RR._rdb5c(p, x, "B", act_type="leakyrelu", plus=plus)
-    s = RR._rdb5c_scatter(p, x, "B", act_type="leakyrelu", plus=plus)
-    np.testing.assert_allclose(s.numpy(), g.numpy(), rtol=2e-5, atol=2e-6)
-
-
-def test_scatter_no_bias():
-    rng = np.random.default_rng(8)
-    p = _rdb_params(rng, 64, 32, bias=False)
-    x = torch.from_numpy(rng.standard_normal((1, 16, 16, 64)).astype(np.float32))
-    np.testing.assert_allclose(
-        RR._rdb5c_scatter(p, x, "B", act_type="leakyrelu", plus=False).numpy(),
-        RR._rdb5c(p, x, "B", act_type="leakyrelu", plus=False).numpy(), rtol=2e-5, atol=2e-6)
-
-
-def test_scatter_bf16_close():
-    rng = np.random.default_rng(9)
-    p = _rdb_params(rng, 64, 32)
-    x = torch.from_numpy(rng.standard_normal((1, 32, 32, 64)).astype(np.float32))
-    ref = RR._rdb5c(p, x, "B", act_type="leakyrelu", plus=False).numpy()
-    g = RR._rdb5c(p, x.bfloat16(), "B", act_type="leakyrelu", plus=False).float().numpy()
-    s = RR._rdb5c_scatter(p, x.bfloat16(), "B", act_type="leakyrelu", plus=False).float().numpy()
-    # scatter's bf16 error is in the class of gather's
-    assert np.abs(s - ref).max() <= 4 * np.abs(g - ref).max() + 1e-3
-
-
-def test_backend_scatter_rejects_norm_and_parameterised_acts():
-    x = torch.zeros(1, 8, 8, 64)
-    with pytest.raises(ValueError, match="scatter"):
-        RR._rrdb({}, x, "B", nr=3, act_type="prelu", plus=False, backend="scatter")
-    with pytest.raises(ValueError, match="scatter"):
-        RR._rrdb({}, x, "B", nr=3, act_type="leakyrelu", plus=False, backend="scatter",
-                 norm_type="batch")
-
-
-@pytest.mark.parametrize("plus", [False, True])
-def test_scatter_backend_model_matches_jax_scatter(plus):
-    spec = {"type": "esrgan", "nb": 1, "nf": 16, "gc": 8, "plus": plus, "backend": "scatter"}
-    state = SP.esrgan_state(nb=1, nf=16, gc=8, scale=2, plus=plus, seed=4)
-    jm, jp, tm, tp = _pair(state, jax_config(spec, 2))
-    x = _x(14, 18, seed=6)
-    _assert_fp32_close(_port_out(tm, tp, x), _jax_out(jm, jp, x))
-
-
-# ---------------------------------------------------------------------------
 # Tiling of the zoo
 # ---------------------------------------------------------------------------
 
@@ -464,8 +398,8 @@ def test_srresnet_hybrid_runner_matches_jax_runner():
 
 
 # ---------------------------------------------------------------------------
-# Repairs: the kernel gates see the norm layers; auto -> hybrid only where
-# the trunk runs a port kernel
+# The kernel gates (ops/rdb.fusable, ops/resnet_block.fusable) see the
+# norm layers; auto -> hybrid only where the trunk runs a port kernel
 # ---------------------------------------------------------------------------
 
 class _CudaLooking(torch.Tensor):
@@ -477,25 +411,58 @@ class _CudaLooking(torch.Tensor):
         return True
 
 
-def _esrgan_variant(norm=None, act="leakyrelu", backend="auto"):
+def _esrgan_variant(norm=None, act="leakyrelu"):
     cfg = jax_config({"type": "esrgan", "nb": 1, "nf": 16, "gc": 8, "norm_type": norm,
-                      "act_type": act, "backend": backend}, 2)
+                      "act_type": act}, 2)
     return get_network(cfg)
 
 
-def test_kernel_backend_refuses_norm_layers():
-    state = load_checkpoint(os.path.join(GOLDENS, "esrgan_bn_x2.pth"))
-    cfg = dict(_golden("esrgan_bn_x2")[1]["cfg"], backend="kernel")
-    model, params = load_model_from_state(state, cfg, device="cpu")
-    with pytest.raises(ValueError, match="no norm"):
-        model.apply(params, torch.zeros(1, 8, 8, 3))
+def _rdb_weights(nf=16, gc=8, bias=True, dim=4):
+    ws = [torch.zeros(gc if c < 5 else nf, nf + (c - 1) * gc, *(3,) * (dim - 2))
+          for c in range(1, 6)]
+    return ws, [torch.zeros(w.shape[0]) if bias else None for w in ws]
+
+
+@pytest.mark.parametrize("case,takes", [
+    ({}, True), ({"act": "lrelu", "dtype": torch.bfloat16}, True),
+    ({"act": "prelu"}, False), ({"act": "swish"}, False), ({"norm": "batch"}, False),
+    ({"norm": "instance"}, False), ({"bias": False}, False), ({"cuda": False}, False),
+    ({"dim": 5}, False)])
+def test_rdb_fusable_takes_only_the_kernels_configuration(case, takes):
+    """rdb.fusable holds for the kernel's configuration alone: a CUDA tensor
+    of fp32 or bf16, biased convs, LeakyReLU, no norm; a 5-D Conv3D clip
+    (evsrgan) keeps the plain path."""
+    c = {"dtype": torch.float32, "act": "leakyrelu", "norm": None, "bias": True, "dim": 4,
+         "cuda": True, **case}
+    ws, bs = _rdb_weights(bias=c["bias"], dim=c["dim"])
+    x = torch.zeros(1, *(8,) * (c["dim"] - 2), 16, dtype=c["dtype"])
+    if c["cuda"]:
+        x = x.as_subclass(_CudaLooking)
+    assert RDB.fusable(x, ws, bs, act_type=c["act"], norm_type=c["norm"]) is takes
+
+
+@pytest.mark.parametrize("case,takes", [
+    ({}, True), ({"dtype": torch.bfloat16}, True), ({"norm": "batch"}, False),
+    ({"pad": "zero"}, False), ({"pad": "replicate"}, False), ({"cuda": False}, False),
+    ({"c": 48}, False)])
+def test_resnet_block_fusable_takes_only_the_kernels_configuration(case, takes):
+    """resnet_block.fusable holds for the kernel's configuration alone:
+    instance norm, reflect padding, a CUDA tensor, fp32 or bf16, channels a
+    multiple of 32."""
+    c = {"dtype": torch.float32, "norm": "instance", "pad": "reflect", "cuda": True, "c": 32,
+         **case}
+    x = torch.zeros(1, 8, 8, c["c"], dtype=c["dtype"])
+    if c["cuda"]:
+        x = x.as_subclass(_CudaLooking)
+    w = torch.zeros(c["c"], c["c"], 3, 3)
+    assert RB.fusable(x, w, w, norm_type=c["norm"], pad_type=c["pad"]) is takes
 
 
 @pytest.mark.parametrize("norm,act,kernel_calls", [
     (None, "leakyrelu", 3), ("batch", "leakyrelu", 0), ("instance", "leakyrelu", 0),
     (None, "prelu", 0)])
 def test_auto_gate_on_the_card_passes_the_norm(norm, act, kernel_calls, monkeypatch):
-    """On a CUDA tensor, backend='auto' reaches the fused RDB only for the
+    """On a CUDA tensor the model reaches the fused RDB only for the
     kernel's configuration; the gate used to take norm_type as None."""
     calls = []
 
@@ -521,17 +488,16 @@ def test_auto_gate_on_the_card_passes_the_norm(norm, act, kernel_calls, monkeypa
     assert model.trunk_kernel == (kernel_calls > 0)
 
 
-@pytest.mark.parametrize("norm,act,backend,chain", [
-    (None, "leakyrelu", "kernel", True), (None, "leakyrelu", "auto", True),
-    ("batch", "leakyrelu", "kernel", False), ("instance", "leakyrelu", "auto", False),
-    (None, "swish", "auto", False), (None, "leakyrelu", "torch", False)])
-def test_chain_gate_refuses_what_the_kernel_does_not_cover(norm, act, backend, chain,
-                                                           monkeypatch):
+@pytest.mark.parametrize("norm,act,chain", [
+    (None, "leakyrelu", True), ("batch", "leakyrelu", False),
+    ("instance", "leakyrelu", False), (None, "swish", False)])
+def test_chain_gate_refuses_what_the_kernel_does_not_cover(norm, act, chain, monkeypatch):
     monkeypatch.setenv("INNFER_RDB_CHAIN", "1")
-    params = {"model.1.sub.0.RDB1.conv1.0.bias": torch.zeros(8)}
+    ws, bs = _rdb_weights()
+    params = {f"model.1.sub.0.RDB1.conv{c}.0.{k}": t for c, w, b in zip(range(1, 6), ws, bs)
+              for k, t in (("weight", w), ("bias", b))}
     x = torch.zeros(1, 8, 8, 16).as_subclass(_CudaLooking)
-    assert RR._use_chain(params, x, nr=3, act_type=act, norm_type=norm,
-                         backend=backend) is chain
+    assert RR._use_chain(params, x, nr=3, act_type=act, norm_type=norm) is chain
 
 
 def _session_mode(tmp_path, name, state):
@@ -547,12 +513,11 @@ def test_session_auto_goes_hybrid_only_where_the_trunk_runs_a_kernel(tmp_path):
     assert _session_mode(tmp_path, "ppon", SP.ppon_state(nb=1, nf=16, seed=1)) == "auto"
 
 
-@pytest.mark.parametrize("norm,act,backend,mode", [
-    (None, "leakyrelu", "auto", "hybrid"), (None, "leakyrelu", "kernel", "hybrid"),
-    ("instance", "leakyrelu", "auto", "auto"), ("batch", "leakyrelu", "auto", "auto"),
-    (None, "prelu", "auto", "auto"), (None, "leakyrelu", "torch", "auto")])
-def test_runner_mode_for_esrgan_variants(norm, act, backend, mode):
-    model = _esrgan_variant(norm, act, backend)
+@pytest.mark.parametrize("norm,act,mode", [
+    (None, "leakyrelu", "hybrid"), ("instance", "leakyrelu", "auto"),
+    ("batch", "leakyrelu", "auto"), (None, "prelu", "auto")])
+def test_runner_mode_for_esrgan_variants(norm, act, mode):
+    model = _esrgan_variant(norm, act)
     runner = TE.TiledRunner(model.apply, model.scale, mode="auto", trunk_fn=model.apply_trunk,
                             tail_fn=model.apply_tail, tail_halo=model.tail_halo,
                             trunk_kernel=model.trunk_kernel)
