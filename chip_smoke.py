@@ -18,9 +18,10 @@ the final result line):
               and whether zlib.h and jpeglib.h are on g++'s include path.
               It fails where g++ and zlib.h are present and the library
               still does not build or load;
-  2. build    the four kernel libraries (ops/csrc/rdb.cu, tail_conv.cu
+  2. build    the five kernel libraries (ops/csrc/rdb.cu, tail_conv.cu
               and dilated_block.cu with ops/csrc/conv3x3_tma.cuh,
-              resnet_block.cu; all with the shared ops/csrc/conv3x3_tc.cuh)
+              resnet_block.cu, all with the shared ops/csrc/conv3x3_tc.cuh;
+              instance_norm.cu, no conv)
               built at once with nvcc (sm_90a); for each, ptxas' registers
               and spills of every tensor-core conv instantiation (rdb's
               conv_tma, resnet_block's conv_wgmma, one per N tile,
@@ -28,8 +29,9 @@ the final result line):
               dilated_block's dilated_block_c1 and dilated_block_rates) with
               its dynamic shared memory, and the counts of HGMMA (wgmma)
               and UTMALDG (TMA tensor load) instructions in the library's
-              SASS (cuobjdump): HGMMA must be above 0 in all, UTMALDG in
-              all but resnet_block's, and no TMA conv may spill (but the
+              SASS (cuobjdump): HGMMA must be above 0 in all but
+              instance_norm's, UTMALDG in all but resnet_block's and
+              instance_norm's, and no TMA conv may spill (but the
               16 B of tail_conv's HR conv, TMA_SPILL_B);
   3. kernel   fused_rdb against rdb_reference at nf=64, gc=32 on
               (1, 64, 1920, 64) strips, bf16 and fp32, with and without the
@@ -109,12 +111,18 @@ the final result line):
               TFLOP/s and share of the bound; and at the batched path's
               shapes (8, 128, 128, 256) and (32, 66, 36, 256), bf16,
               against the plain version, timed beside the bound;
+     Then [instance_norm]: fused_instance_norm (ops/instance_norm.py) at
+              the CycleGAN cell's three norm shapes (a group of 8 tiles of
+              552x256 at 64, 128 and 256 channels) on a bias-shifted fp32
+              accumulator, within one bf16 ulp of its plain composition and
+              at least 99.9% equal, timed beside its byte bound, the plain
+              composition and F.instance_norm + torch.relu on bf16;
   8. cyclegan a seeded synthetic CycleGAN resnet_9blocks (ngf=64) state
               dict with legacy InstanceNorm running-stat keys, and seeded
               512x512 and 1080x1920 PNGs, through InferenceSession with the
               cyclegan preset (non-strict load, [-1, 1]) in bf16,
-              tile_mode="auto": 9 fused_resnet_block launches per tile
-              group, 1x PNGs, >= 40 dB against ops.plain_path, and fp32
+              tile_mode="auto": 9 fused_resnet_block and 5
+              fused_instance_norm launches per tile group, 1x PNGs, >= 40 dB against ops.plain_path, and fp32
               kernel path vs torch path >= 80 dB on a small input;
   9. zoo      seeded synthetic SRResNet 4x (nf=64, nb=16, pixelshuffle,
               relu, CNA), PAN 4x (nf=40, unf=24, nb=16, self-attention)
@@ -316,13 +324,18 @@ MIN_PSNR_DB = 40.0                # kernel path vs torch path, u8 outputs
 RB_PSNR_DB = 55.0                 # bf16 fused_resnet_block vs its plain version
 NB = 23                           # RRDBs of the main-path ESRGAN
 CG_BLOCKS, CG_NGF = 9, 64         # CycleGAN resnet_9blocks at its published width
+CG_NORMS = 5                      # its instance norms outside the blocks, a forward
 ZOO_BF16_DB, ZOO_FP32_DB = 30.0, 80.0   # bf16 vs fp32 session (u8); fp32 card vs CPU
-LIBS = ("rdb", "resnet_block", "tail_conv", "dilated_block")
+LIBS = ("rdb", "resnet_block", "tail_conv", "dilated_block", "instance_norm")
+NO_CONV_LIBS = ("instance_norm",)  # no tensor-core conv: no HGMMA or UTMALDG to count
 # Spill bytes a TMA conv instantiation may have: none, but for tail_conv's
 # HR conv (N=256 a phase-major tile of 1 row), whose 16 B were there when
 # it was first measured on the H100; more fails the build phase.
 TMA_SPILL_B = {"conv_tail N=256 cpad=64 phase": 16}
 DILATED_SHAPE = (1, 576, 960, 64)   # the PPON cell's hybrid trunk canvas, nf 64
+# the CycleGAN cell's norm shapes, a group of 8 tiles of 552x256: the head
+# and the last up (64 channels), the downs' and ups' 128, the last down's 256
+IN_SHAPES = ((8, 552, 256, 64), (8, 276, 128, 128), (8, 138, 64, 256))
 
 
 def fail(msg: str) -> None:
@@ -561,6 +574,8 @@ def phase_build() -> dict:
             if spills:
                 fail(f"{where}: the TMA convs spill {spills} B of registers past "
                      f"TMA_SPILL_B")
+        if name in NO_CONV_LIBS:
+            continue
         if hgmma == 0:
             fail(f"{where} holds no HGMMA instruction: the bf16 conv is not on the tensor cores")
         if name != "resnet_block" and utmaldg == 0:
@@ -571,12 +586,14 @@ def phase_build() -> dict:
 
 def kernel_counters():
     from innfer_tpu_torch.ops.dilated_block import fused_dilated_block
+    from innfer_tpu_torch.ops.instance_norm import fused_instance_norm
     from innfer_tpu_torch.ops.rdb import fused_rdb, fused_rdb_padded, fused_rrdb_trunk
     from innfer_tpu_torch.ops.resnet_block import fused_resnet_block
     from innfer_tpu_torch.ops.tail_conv import tail_conv
 
     return {f.__name__: f for f in (fused_rdb, fused_rdb_padded, fused_rrdb_trunk,
-                                    fused_resnet_block, tail_conv, fused_dilated_block)}
+                                    fused_resnet_block, tail_conv, fused_dilated_block,
+                                    fused_instance_norm)}
 
 
 def reset_counts() -> None:
@@ -1349,7 +1366,7 @@ def phase_chain(dev, work, main):
     n = main["n_images"]
     want = {"fused_rdb": 0, "fused_rdb_padded": NB * 3 * n, "fused_rrdb_trunk": n,
             "fused_resnet_block": 0, "tail_conv": 4 * main["tail_groups"],
-            "fused_dilated_block": 0}
+            "fused_dilated_block": 0, "fused_instance_norm": 0}
     if counts != want:
         fail(f"INNFER_RDB_CHAIN=1 session launches {counts}; expected {want}")
     dbs = []
@@ -1476,6 +1493,75 @@ def phase_resnet_block(dev):
     return row
 
 
+def exact_stats_norm(torch, acc):
+    """relu(instance norm) of bf16(acc) as the plain composition computes
+    it, but with float64 statistics rounded once to fp32."""
+    x = acc.to(torch.bfloat16)
+    x64 = x.double()
+    mean = x64.mean(dim=(1, 2), keepdim=True)
+    var = (x64 - mean).square().mean(dim=(1, 2), keepdim=True)
+    return torch.relu(((x.float() - mean.float()) * torch.rsqrt(var.float() + 1e-5))
+                      .to(torch.bfloat16))
+
+
+def phase_instance_norm(dev):
+    """Row 7 of the kernel table: fused_instance_norm (ops/instance_norm.py)
+    at the CycleGAN cell's three norm shapes on an accumulator shifted by a
+    bias (per-channel means about 40, spread 1): within one bf16 ulp of its
+    plain composition, and at least 99.9% equal to that composition with
+    float64 statistics and at least as often as the plain composition (whose
+    fp32 mean over 141,312 pixels strays by a few ulps); then timed with CUDA events
+    beside its bound (the fp32 accumulator read once and the bf16 output
+    written once), the plain composition (the model's path off the kernel:
+    the rounding, ``nn/functional.instance_norm``, ReLU) and PyTorch's
+    ``F.instance_norm`` + ``torch.relu`` alone on the rounded bf16 tensor
+    (the library yardstick)."""
+    import torch
+    import torch.nn.functional as TF
+
+    from innfer_tpu_torch.ops import instance_norm as IN
+
+    rows = []
+    for shape in IN_SHAPES:
+        g = torch.Generator().manual_seed(sum(shape))
+        acc = (torch.randn(*shape, generator=g) + 40 + torch.randn(shape[-1], generator=g))
+        acc = acc.to(dev)
+        before = IN.fused_instance_norm.launches
+        out = IN.fused_instance_norm(acc)
+        plain = IN.instance_norm_reference(acc)
+        torch.cuda.synchronize()
+        if IN.fused_instance_norm.launches != before + 1:
+            fail("fused_instance_norm: the wrapper did not launch the kernel")
+        err = (out.float() - plain.float()).abs().max().item()
+        exact = exact_stats_norm(torch, acc)
+        equal, e_out, e_plain = ((a == b).float().mean().item()
+                                 for a, b in ((out, plain), (out, exact), (plain, exact)))
+        del exact
+        if not within_one_ulp(out, plain) or e_out < 0.999 or e_out < e_plain:
+            fail(f"fused_instance_norm {shape}: max_abs {err:.3g} against the plain composition "
+                 f"({100 * equal:.4f}% equal); {100 * e_out:.4f}% equal to the float64-statistics "
+                 f"composition, the plain composition {100 * e_plain:.4f}%")
+        x = acc.to(torch.bfloat16)
+        nchw = x.permute(0, 3, 1, 2)
+        ms = cuda_ms(lambda: IN.fused_instance_norm(acc), reps=20)
+        plain_ms = cuda_ms(lambda: IN.instance_norm_reference(acc), reps=5)
+        library_ms = cuda_ms(lambda: torch.relu(TF.instance_norm(nchw)), reps=10)
+        n = acc.numel()
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               **bound(0.0, 4 * n + 2 * n)}
+        row.update(rates(0.0, ms, row["bound_ms"]))
+        print(f"[instance_norm] {shape}: max_abs {err:.3g}, {100 * equal:.4f}% equal to the plain "
+              f"composition (within one bf16 ulp); equal to the float64-statistics composition "
+              f"{100 * e_out:.4f}% (the plain composition {100 * e_plain:.4f}%); kernel {ms:.4f} ms, bound {row['bound_ms']:.4f} "
+              f"ms (bytes: {6 * n / 1e6:.1f} MB), {100 * row['bound_share']:.1f}% of the bound, "
+              f"{10 * n / ms / 1e6:.0f} GB/s moved (2 fp32 reads, 1 bf16 write); "
+              f"plain {plain_ms:.4f} ms, F.instance_norm + torch.relu on bf16 {library_ms:.4f} ms",
+              flush=True)
+        rows.append(row)
+        del acc, out, plain, x, nchw
+    return rows[0]
+
+
 def synth_cyclegan_state(torch, seed, n_blocks=CG_BLOCKS, ngf=CG_NGF):
     """A seeded random-init CycleGAN resnet generator state dict in the
     reference's key layout (a copy of tools/synth_params.py's
@@ -1586,9 +1672,10 @@ def phase_cyclegan(dev, work):
         counts = read_counts()
     finally:
         resnet_model.fused_resnet_block = block_fn
+    n_groups = sum(g[0] for g in groups.values())
     want = {"fused_rdb": 0, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0, "tail_conv": 0,
-            "fused_dilated_block": 0,
-            "fused_resnet_block": CG_BLOCKS * sum(g[0] for g in groups.values())}
+            "fused_dilated_block": 0, "fused_resnet_block": CG_BLOCKS * n_groups,
+            "fused_instance_norm": CG_NORMS * n_groups}
     if runner.last_mode != "auto":
         fail(f"tile_mode auto ran {runner.last_mode!r} for the CycleGAN")
     if counts != want:
@@ -1624,7 +1711,7 @@ def phase_cyclegan(dev, work):
         for n, t, b, (a, z) in zip(sizes, device_ms, block_ms, ref_events))
     print(f"[cyclegan] resnet_9blocks ngf={CG_NGF}, {len(sizes)} images in bf16, mode "
           f"{runner.last_mode} ({plans}): fused_resnet_block launches "
-          f"{counts['fused_resnet_block']}; wall {wall:.3f} s for both (plain path "
+          f"{counts['fused_resnet_block']}, fused_instance_norm {counts['fused_instance_norm']}; wall {wall:.3f} s for both (plain path "
           f"{ref_wall:.3f} s); CUDA events per image: {times}; PSNR vs the plain path "
           f"{', '.join(f'{d:.1f}' for d in dbs)} dB (bar {MIN_PSNR_DB})", flush=True)
     if min(dbs) < MIN_PSNR_DB:
@@ -1641,7 +1728,7 @@ def phase_cyclegan(dev, work):
           flush=True)
     if db32 < 80.0 or not torch.isfinite(a).all():
         fail(f"fp32 CycleGAN kernel path vs torch path PSNR {db32:.1f} dB < 80")
-    return counts["fused_resnet_block"]
+    return counts
 
 
 class SynthState:
@@ -2402,6 +2489,10 @@ def phase_batch(dev, work):
             "fused_dilated_block": 0}
     cg = {}
     for dt in (bf16, fp32):
+        def cg_launches(blocks, dt=dt):  # the norms take their kernel in bf16 alone
+            return {**want, "fused_resnet_block": blocks,
+                    "fused_instance_norm": CG_NORMS * blocks // CG_BLOCKS if dt == bf16 else 0}
+
         sess = InferenceSession(cg_ckpt, arch="resnet_9blocks", compute_dtype=dt,
                                 tile_mode="auto")
         whole = InferenceSession(cg_ckpt, arch="resnet_9blocks", presets=whole_p,
@@ -2426,12 +2517,12 @@ def phase_batch(dev, work):
               + (f"{MIN_PSNR_DB} dB" if dt == bf16 else "100% within one level") + ")"
               + (f"; whole-image one at a time wall {ms(wall_w)} ms per image, events "
                  f"{ms(ev_w)}, stages {st_w}" if dt == bf16 else ""), flush=True)
-        if cb != {**want, "fused_resnet_block": 9} or cw != {**want, "fused_resnet_block": 72}:
+        if cb != cg_launches(9) or cw != cg_launches(72):
             fail(f"CycleGAN {tag} batched: launches {cb}, one at a time {cw}")
         if (db < MIN_PSNR_DB) if dt == bf16 else (share < 1.0):
             fail(f"CycleGAN {tag} batched vs one at a time: {share:.5f} within one level, "
                  f"{db:.1f} dB")
-        if dt == bf16 and (groups != [8] or c1 != {**want, "fused_resnet_block": 72}):
+        if dt == bf16 and (groups != [8] or c1 != cg_launches(72)):
             fail(f"CycleGAN batched: groups {groups}, batch=1 launches {c1}")
         cg[dt] = sess
 
@@ -3073,7 +3164,7 @@ def phase_parallel(dev, work, main, halo_shape=(1, 1088, 1920, NF)):
           f"{dp_wall:.3f} s", flush=True)
     if dp_counts != {"fused_rdb": 69 * slices, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0,
                      "fused_resnet_block": 0, "tail_conv": 4 * slices,
-                     "fused_dilated_block": 0}:
+                     "fused_dilated_block": 0, "fused_instance_norm": 0}:
         fail(f"dp tiles launched {dp_counts}, expected 69 x {slices} fused_rdb and 4 x "
              f"{slices} tail_conv (a forward's tail per slice)")
     if share < 0.999 or db < MIN_PSNR_DB or err32 > 1e-5 or err_tb > 5e-4 or len(dp_written) != 1:
@@ -3333,7 +3424,10 @@ def main() -> int:
             phase_tail(dev, work, main)
             pad, trunk = phase_chain(dev, work, main)
             rb = phase_resnet_block(dev)
-            rb["launches"] = phase_cyclegan(dev, work)
+            in_row = phase_instance_norm(dev)
+            cg_counts = phase_cyclegan(dev, work)
+            rb["launches"] = cg_counts["fused_resnet_block"]
+            in_row["launches"] = cg_counts["fused_instance_norm"]
             dil_row["launches"] = phase_zoo(dev, work, main)["ppon"]["dilated_launches"]
             phase_ts(dev, work, main)
             phase_i2i(dev, work, main)
@@ -3364,7 +3458,11 @@ def main() -> int:
         {"name": "fused_dilated_block", "route": "cuda",
          "source": "innfer_tpu_torch/ops/csrc/dilated_block.cu",
          "replaces": "XLA's convs of innfer_tpu/models/ppon.py::_res_block_32 (no TPU kernel)",
-         **dil_row}]
+         **dil_row},
+        {"name": "fused_instance_norm", "route": "cuda",
+         "source": "innfer_tpu_torch/ops/csrc/instance_norm.cu",
+         "replaces": "XLA's instance norm of innfer_tpu/nn/functional.py (no TPU kernel)",
+         **in_row}]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops", "bound_share")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))

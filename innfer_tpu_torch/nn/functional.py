@@ -185,11 +185,12 @@ def _autotuned_deterministic():
 
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
                      b: Optional[torch.Tensor] = None, *, stride: int = 2,
-                     padding: int = 1, output_padding: int = 0) -> torch.Tensor:
+                     padding: int = 1, output_padding: int = 0,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Transposed convolution, NHWC -> NHWC, matching torch.nn.ConvTranspose2d.
     ``w`` keeps the checkpoint's (I, O, kh, kw) layout, so no flip is needed:
-    out = (in - 1) * stride - 2 * padding + kh + output_padding.  Bias and
-    rounding as :func:`conv2d`.
+    out = (in - 1) * stride - 2 * padding + kh + output_padding.  Bias,
+    rounding and ``out_dtype`` as :func:`conv2d`.
 
     cuDNN runs it as a backward-data conv and picks among its deterministic
     algorithms by timing them, once per shape in the process, as the
@@ -198,8 +199,8 @@ def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
     ``deterministic`` alone the heuristic's pick took 238 ms at 1280x2048
     bf16 against 10 ms autotuned (PERF.md, PR 11)."""
     with _autotuned_deterministic():
-        return _conv_any(TF.conv_transpose2d, x, w, b, stride=stride, padding=padding,
-                         output_padding=output_padding)
+        return _conv_any(TF.conv_transpose2d, x, w, b, out_dtype=out_dtype, stride=stride,
+                         padding=padding, output_padding=output_padding)
 
 
 _MATMUL = torch.backends.cuda.matmul

@@ -146,6 +146,10 @@ SIGNATURES = {
     "dilated_block": {
         "innfer_dilated_block": ([_vp] * 9 + [_i] * 3 + [_vp], _i),
     },
+    "instance_norm": {
+        "innfer_instance_norm": ([_vp] * 4 + [_i] * 4 + [_f, _i, _vp], _i),
+        "innfer_instance_norm_chunks": ([_i] * 4, _i),
+    },
 }
 
 
@@ -185,6 +189,11 @@ def tail_conv_library() -> ctypes.CDLL:
 def dilated_block_library() -> ctypes.CDLL:
     """PPON's dilated multi-rate block (``csrc/dilated_block.cu``)."""
     return library("dilated_block")
+
+
+def instance_norm_library() -> ctypes.CDLL:
+    """Instance norm + ReLU on a conv's fp32 accumulator (``csrc/instance_norm.cu``)."""
+    return library("instance_norm")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1154,3 +1154,79 @@ def test_ppon_runs_its_blocks_and_tails_on_the_kernels_on_card(cuda_device):
     convs = [k for k in kernels if "conv" in k.lower() and "dilated_block_" not in k
              and "conv_tail" not in k]
     assert len(convs) <= 4, convs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 552, 256, 64), (8, 276, 128, 128), (8, 138, 64, 256),
+                                   (1, 67, 45, 32)])
+def test_instance_norm_matches_plain_on_card(cuda_device, shape):
+    """fused_instance_norm at the CycleGAN cell's three norm shapes (a group
+    of 8 tiles of 552x256: the head and the last up, the downs' and ups'
+    128 channels, the trunk's 256) and a ragged one, on an accumulator
+    shifted by a bias (per-channel means about 40, spread 1): >= 99.9% of
+    values equal to the plain composition on the card, every value within
+    one bf16 ulp of it (``_within_one_ulp``: the two take the statistics'
+    fp32 sums in another order, which can flip a rounding, and near 0 moves
+    a value by the means' difference), and the statistics within 1e-5 of a
+    float64 two-pass over the rounded values.  Against the same composition
+    with those float64 statistics (rounded to fp32): >= 99.9% equal, and at
+    least as many values equal as the plain composition has, whose fp32
+    mean over 141,312 pixels can stray by a few ulps."""
+    from innfer_tpu_torch.ops import instance_norm as IN
+
+    g = torch.Generator().manual_seed(sum(shape))
+    shift = 40 + torch.randn(shape[-1], generator=g)
+    acc = (torch.randn(*shape, generator=g) + shift).to(cuda_device)
+    stats = torch.empty(shape[0], 2, shape[-1], device=cuda_device)
+    before = IN.fused_instance_norm.launches
+    out = IN.fused_instance_norm(acc, stats=stats)
+    plain = IN.instance_norm_reference(acc)
+    torch.cuda.synchronize()
+    assert IN.fused_instance_norm.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == acc.shape
+    share = lambda a, c: (a == c).float().mean().item()  # noqa: E731
+    _within_one_ulp(out, plain)
+    assert share(out, plain) >= 0.999
+    x = acc.to(torch.bfloat16)
+    x64 = x.double()
+    mean = x64.mean(dim=(1, 2), keepdim=True)
+    var = (x64 - mean).square().mean(dim=(1, 2), keepdim=True)
+    exact = torch.relu(((x.float() - mean.float()) * torch.rsqrt(var.float() + IN.EPS))
+                       .to(torch.bfloat16))
+    assert share(out, exact) >= 0.999 and share(out, exact) >= share(plain, exact)
+    mean, var = mean.reshape(shape[0], -1), var.reshape(shape[0], -1)
+    assert ((stats[:, 0].double() - mean).abs() <= 1e-5 * mean.abs()).all().item()
+    assert ((stats[:, 1].double() - var).abs() <= 1e-5 * var).all().item()
+
+
+@pytest.mark.gpu
+def test_cyclegan_1080p_frame_runs_its_norms_on_the_kernel_on_card(cuda_device, tmp_path):
+    """A bf16 resnet_9blocks ngf=64 1080x1920 frame through the session as
+    the benchmark's cell builds it (auto grid, tile_batch 8: two groups of
+    8 tiles): 10 fused_instance_norm calls (5 a group) and 18
+    fused_resnet_block launches, none inside ``ops.plain_path``, and the u8
+    frame >= 40 dB against the plain path's (chip_smoke.py's [cyclegan]
+    bar)."""
+    from innfer_tpu_torch.ops import instance_norm as IN
+    from innfer_tpu_torch.pipeline import InferenceSession, select_presets
+    from innfer_tpu_torch.tools import synth_params as SP
+
+    ckpt = str(tmp_path / "cyclegan9.pth")
+    torch.save({k: torch.from_numpy(np.asarray(v))
+                for k, v in SP.cyclegan_state(n_blocks=9, ngf=64, seed=21).items()}, ckpt)
+    sess = InferenceSession(ckpt, arch="resnet_9blocks", presets=select_presets("resnet_9blocks"),
+                            compute_dtype=torch.bfloat16, tile=256, overlap=16,
+                            tile_mode="auto", tile_batch=8)
+    frame = (np.random.default_rng(22).random((1080, 1920, 3)) * 255).astype(np.uint8)
+    outs, launches = {}, {}
+    for path in ("kernel", "plain"):
+        norms, blocks = IN.fused_instance_norm.launches, fused_resnet_block.launches
+        with torch.no_grad(), plain_path() if path == "plain" else contextlib.nullcontext():
+            outs[path] = sess.run_image(frame)
+        torch.cuda.synchronize()
+        launches[path] = (IN.fused_instance_norm.launches - norms,
+                          fused_resnet_block.launches - blocks)
+    assert launches == {"kernel": (10, 18), "plain": (0, 0)}
+    assert outs["kernel"].shape == (1080, 1920, 3) and outs["kernel"].std() > 1.0
+    mse = np.mean((outs["kernel"].astype(np.float64) - outs["plain"]) ** 2)
+    assert 10 * np.log10(255.0 ** 2 / max(mse, 1e-12)) >= 40

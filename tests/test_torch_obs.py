@@ -240,8 +240,9 @@ def test_tracing_is_off_outside_a_profiler(tracer):
 def test_frame_spans_form_the_tabled_tree(tracer, kind):
     """Under a CPU profiler: each frame's spans form the tabled tree (no
     download: a CPU output needs no copy), share the frame's request id, lie
-    on the profiler's timeline, and the counters equal the plan's pixels
-    and the tail's convs; the output is bitwise the untraced one."""
+    on the profiler's timeline, and the counters equal the plan's pixels,
+    the tail's convs and the generator's norms; the output is bitwise the
+    untraced one."""
     sess, hw = _session(kind)
     imgs = [_image(hw, s) for s in (1, 2)]
     plain = [sess.run_image(im) for im in imgs]
@@ -274,6 +275,8 @@ def test_frame_spans_form_the_tabled_tree(tracer, kind):
                 "tiled_px": 2 * hw[0] * hw[1]}
     if kind == "rrdb_hybrid":  # the x2 phase tail's three convs a group, none fused on the CPU
         counters["tail_convs"] = 2 * groups * 3
+    else:  # the generator's five instance norms a group, none fused on the CPU
+        counters["norms"] = 2 * groups * 5
     assert s["counters"] == counters
     assert s["spans"]["innfer.frame"]["count"] == 2
     assert all(row["device_ms"] is None and row["host_ms"] >= 0 for row in s["spans"].values())
