@@ -124,6 +124,20 @@ the final result line):
               tile_mode="auto": 9 fused_resnet_block and 5
               fused_instance_norm launches per tile group, 1x PNGs, >= 40 dB against ops.plain_path, and fp32
               kernel path vs torch path >= 80 dB on a small input;
+     Then [window_attn]: window_attn (ops/window_attn.py) at the SwinIR
+              cell's canvas (1, 544, 960), 6 heads of 30, shifted and not:
+              >= 99.9% equal to its plain version, all within two bf16
+              ulps, over both shifts at least as often equal to the float64
+              version as the plain version; timed beside its byte bound,
+              the plain version and scaled_dot_product_attention on
+              pre-partitioned windows (a yardstick); its registers and
+              spills; fused_layer_norm (ops/layer_norm.py) at the cell's
+              tokens beside its bound and F.layer_norm; and [swinir]:
+              SwinIR-M x4 at its published widths (the benchmark's seeded
+              weights) through InferenceSession with arch infer on a
+              540x960 frame: hybrid on 544x960, 36 window_attn, 74
+              fused_layer_norm and 4 tail conv launches a frame, >= 40 dB
+              against ops.plain_path;
   9. zoo      seeded synthetic SRResNet 4x (nf=64, nb=16, pixelshuffle,
               relu, CNA), PAN 4x (nf=40, unf=24, nb=16, self-attention)
               and PPON 4x (nf=64, nb=24) state dicts, the reference
@@ -326,8 +340,11 @@ NB = 23                           # RRDBs of the main-path ESRGAN
 CG_BLOCKS, CG_NGF = 9, 64         # CycleGAN resnet_9blocks at its published width
 CG_NORMS = 5                      # its instance norms outside the blocks, a forward
 ZOO_BF16_DB, ZOO_FP32_DB = 30.0, 80.0   # bf16 vs fp32 session (u8); fp32 card vs CPU
-LIBS = ("rdb", "resnet_block", "tail_conv", "dilated_block", "instance_norm")
-NO_CONV_LIBS = ("instance_norm",)  # no tensor-core conv: no HGMMA or UTMALDG to count
+LIBS = ("rdb", "resnet_block", "tail_conv", "dilated_block", "instance_norm", "window_attn",
+        "layer_norm")
+# no tensor-core conv: no HGMMA or UTMALDG to count (window_attn's products
+# run on mma.sync)
+NO_CONV_LIBS = ("instance_norm", "window_attn", "layer_norm")
 # Spill bytes a TMA conv instantiation may have: none, but for tail_conv's
 # HR conv (N=256 a phase-major tile of 1 row), whose 16 B were there when
 # it was first measured on the H100; more fails the build phase.
@@ -336,6 +353,10 @@ DILATED_SHAPE = (1, 576, 960, 64)   # the PPON cell's hybrid trunk canvas, nf 64
 # the CycleGAN cell's norm shapes, a group of 8 tiles of 552x256: the head
 # and the last up (64 channels), the downs' and ups' 128, the last down's 256
 IN_SHAPES = ((8, 552, 256, 64), (8, 276, 128, 128), (8, 138, 64, 256))
+# the SwinIR cell's trunk canvas (540 x 960 reflected to the window's
+# multiple): 6 heads of 30, tokens of 180 channels
+SWIN_CANVAS, SWIN_HEADS, SWIN_HD = (1, 544, 960), 6, 30
+SWIN_FRAME = (540, 960)
 
 
 def fail(msg: str) -> None:
@@ -587,13 +608,15 @@ def phase_build() -> dict:
 def kernel_counters():
     from innfer_tpu_torch.ops.dilated_block import fused_dilated_block
     from innfer_tpu_torch.ops.instance_norm import fused_instance_norm
+    from innfer_tpu_torch.ops.layer_norm import fused_layer_norm
+    from innfer_tpu_torch.ops.window_attn import window_attn
     from innfer_tpu_torch.ops.rdb import fused_rdb, fused_rdb_padded, fused_rrdb_trunk
     from innfer_tpu_torch.ops.resnet_block import fused_resnet_block
     from innfer_tpu_torch.ops.tail_conv import tail_conv
 
     return {f.__name__: f for f in (fused_rdb, fused_rdb_padded, fused_rrdb_trunk,
                                     fused_resnet_block, tail_conv, fused_dilated_block,
-                                    fused_instance_norm)}
+                                    fused_instance_norm, window_attn, fused_layer_norm)}
 
 
 def reset_counts() -> None:
@@ -1366,7 +1389,8 @@ def phase_chain(dev, work, main):
     n = main["n_images"]
     want = {"fused_rdb": 0, "fused_rdb_padded": NB * 3 * n, "fused_rrdb_trunk": n,
             "fused_resnet_block": 0, "tail_conv": 4 * main["tail_groups"],
-            "fused_dilated_block": 0, "fused_instance_norm": 0}
+            "fused_dilated_block": 0, "fused_instance_norm": 0, "window_attn": 0,
+            "fused_layer_norm": 0}
     if counts != want:
         fail(f"INNFER_RDB_CHAIN=1 session launches {counts}; expected {want}")
     dbs = []
@@ -1562,6 +1586,163 @@ def phase_instance_norm(dev):
     return rows[0]
 
 
+def phase_window_attn(dev, kernels=None):
+    """Row 8 of the kernel table: window_attn (ops/window_attn.py) at the
+    SwinIR cell's canvas, 6 heads of 30, shifted and not: >= 99.9% equal
+    to its plain version and every value within two bf16 ulps of it (P is
+    rounded to bf16 before P v: one flipped P moves an output by up to
+    2^-9 |v|), >= 99.9% equal to that version in float64, and over both
+    shifts at least as often as the plain version is (one draw's two shares
+    differ by a handful of values either way); then timed
+    with CUDA events beside its bound (q, k, v read once and the output
+    written once, unpadded: 1,440 B a token), the plain version, and
+    PyTorch's scaled_dot_product_attention on windows partitioned
+    beforehand (a yardstick only: the port never calls it).  Then
+    fused_layer_norm at the cell's tokens beside its bound and PyTorch's
+    LayerNorm with the affine in bf16.  ``kernels``: the libraries' ptxas
+    reports, for registers and spills."""
+    import torch
+    import torch.nn.functional as TF
+
+    from innfer_tpu_torch.ops import layer_norm as LNK
+    from innfer_tpu_torch.ops import window_attn as WA
+
+    b, hp, wp = SWIN_CANVAS
+    heads, hd = SWIN_HEADS, SWIN_HD
+    c = heads * hd
+    g = torch.Generator().manual_seed(81)
+    wq = torch.randn(3 * c, c, generator=g) / c ** 0.5
+    wpk, bpk = WA.pack_qkv(wq, torch.randn(3 * c, generator=g) * 0.1, heads, WA.padded(c))
+    x = TF.pad(torch.randn(b, hp, wp, c, generator=g) * 1.5, (0, WA.padded(c) - c)).to(dev)
+    qkv = (x @ wpk.to(dev).t() + bpk.to(dev)).to(torch.bfloat16)
+    del x
+    bias = WA.gather_bias(torch.randn(225, heads, generator=g).to(dev), 8)
+    row, pooled = None, [0.0, 0.0]
+    for shift in (0, 4):
+        kw = dict(heads=heads, head_dim=hd, window=8, shift=shift)
+        before = WA.window_attn.launches
+        out = WA.window_attn(qkv, bias, **kw)
+        plain = WA.window_attn_reference(qkv, bias, **kw)
+        exact = WA.window_attn_reference(qkv, bias, acc=torch.float64, **kw)
+        torch.cuda.synchronize()
+        if WA.window_attn.launches != before + 1:
+            fail("window_attn: the wrapper did not launch the kernel")
+        err = (out.float() - plain.float()).abs().max().item()
+        equal, e_out, e_plain = ((u == v).float().mean().item()
+                                 for u, v in ((out, plain), (out, exact), (plain, exact)))
+        del exact
+        ulp = 2 ** -7 * plain.float().abs() + 1e-3 * max(1.0, plain.float().abs().max().item())
+        two_ulps = bool(((out.float() - plain.float()).abs() <= 2 * ulp).all())
+        pooled[0] += e_out
+        pooled[1] += e_plain
+        if not two_ulps or equal < 0.999 or e_out < 0.999:
+            fail(f"window_attn shift {shift}: max_abs {err:.3g}, {100 * equal:.4f}% equal to the "
+                 f"plain version; {100 * e_out:.4f}% equal to the float64 version, the plain "
+                 f"version {100 * e_plain:.4f}%")
+        ms = cuda_ms(lambda: WA.window_attn(qkv, bias, **kw), reps=20)
+        plain_ms = cuda_ms(lambda: WA.window_attn_reference(qkv, bias, **kw), reps=3)
+        n = b * hp * wp
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               **bound(4.0 * 64 * c * n, 8 * c * n)}
+        row.update(rates(4.0 * 64 * c * n, ms, row["bound_ms"]))
+        print(f"[window_attn] {SWIN_CANVAS} shift {shift}: max_abs {err:.3g}, {100 * equal:.4f}% "
+              f"equal to the plain version (all within two bf16 ulps); equal to the float64 "
+              f"version "
+              f"{100 * e_out:.4f}% (the plain version {100 * e_plain:.4f}%); kernel {ms:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {8 * c * n / 1e6:.1f} MB), "
+              f"{100 * row['bound_share']:.1f}% of the bound; plain {plain_ms:.3f} ms",
+              flush=True)
+        del out, plain
+    if pooled[0] < pooled[1]:
+        fail(f"window_attn: over both shifts {50 * pooled[0]:.5f}% equal to the float64 version, "
+             f"the plain version {50 * pooled[1]:.5f}%")
+    win = qkv.reshape(b, hp // 8, 8, wp // 8, 8, 3, heads, WA.HEAD_STRIDE)[..., :hd]
+    q, k, v = win.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, -1, heads, 64, hd).unbind(0)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    mask = bias.to(torch.bfloat16)[None]
+    row["library_ms"] = cuda_ms(lambda: TF.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                                reps=10)
+    reg = {name: next((r for f, r in (kernels or {}).get(name, {}).items() if key in f), None)
+           for name, key in (("window_attn", "winattn_fwd"), ("layer_norm", "lnorm_rows"))}
+    print(f"[window_attn] winattn_fwd: "
+          + (f"{reg['window_attn']['regs']} registers, {reg['window_attn']['spill']} B spilled; "
+             if reg["window_attn"] else "no ptxas report (library already built); ")
+          + f"scaled_dot_product_attention on windows partitioned beforehand (no roll, no "
+          f"reverse; the yardstick) {row['library_ms']:.4f} ms", flush=True)
+    del q, k, v, win, qkv
+    t = (torch.randn(b, hp, wp, c, generator=g) * 2 + torch.randn(c, generator=g)).to(
+        dev, torch.bfloat16)
+    w = (1 + 0.3 * torch.randn(c, generator=g)).to(dev)
+    bb = (0.2 * torch.randn(c, generator=g)).to(dev)
+    out = LNK.fused_layer_norm(t, w, bb, out_width=WA.padded(c))
+    plain = LNK.layer_norm_reference(t, w, bb, out_width=WA.padded(c))
+    equal = (out == plain).float().mean().item()
+    if equal < 0.999:
+        fail(f"fused_layer_norm: {100 * equal:.4f}% equal to its plain version")
+    ms = cuda_ms(lambda: LNK.fused_layer_norm(t, w, bb, out_width=WA.padded(c)), reps=20)
+    lib_ms = cuda_ms(lambda: TF.layer_norm(t, (c,), w.to(torch.bfloat16), bb.to(torch.bfloat16)),
+                     reps=20)
+    ln_bound = 4 * c * b * hp * wp / HBM_BPS * 1e3
+    print(f"[window_attn] fused_layer_norm {tuple(t.shape)} -> {WA.padded(c)}: "
+          f"{100 * equal:.4f}% equal to its plain version; {ms:.4f} ms, bound {ln_bound:.4f} ms, "
+          f"{100 * ln_bound / ms:.1f}% of it; "
+          + (f"{reg['layer_norm']['regs']} registers, {reg['layer_norm']['spill']} B spilled; "
+             if reg["layer_norm"] else "")
+          + f"F.layer_norm with a bf16 affine {lib_ms:.4f} ms", flush=True)
+    return row
+
+
+def phase_swinir(dev, work):
+    """SwinIR-M real-world x4 at its published widths (the benchmark's
+    seeded weights, ``innbench/reference/swinir.py``) through
+    InferenceSession with ``arch: infer`` in bf16, auto -> hybrid on the
+    544 x 960 canvas, on a seeded 540 x 960 frame: 36 window_attn, 74
+    fused_layer_norm and 4 tail conv launches a frame, the frame's ms, and
+    >= 40 dB against ``ops.plain_path``."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from innbench.reference import swinir as SR
+    from innfer_tpu_torch.ops import plain_path
+    from innfer_tpu_torch.pipeline import InferenceSession, select_presets
+
+    with open(os.path.join(HERE, "innbench", "configs", "swinir_m_x4.json")) as f:
+        model = _json.load(f)["model"]
+    ckpt = os.path.join(work, "4x_swinir_m_x4.pth")
+    state = SR.make_state(model, 22, dev)
+    torch.save({"params_ema": {k: v.cpu() for k, v in state.items()}}, ckpt)
+    del state
+    sess = InferenceSession(ckpt, arch="infer", presets=select_presets("infer", ckpt),
+                            compute_dtype=torch.bfloat16, tile=256, overlap=16,
+                            tile_mode="auto", tile_batch=8)
+    frame = synth_image(*SWIN_FRAME, seed=23)
+    sess.run_image(frame)
+    torch.cuda.synchronize()
+    reset_counts()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = sess.run_image(frame)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    counts = {k: v / reps for k, v in read_counts().items() if v}
+    with plain_path():
+        plain = sess.run_image(frame)
+    runner = sess.stages[0].runner
+    plan = runner.plan_for(*SWIN_FRAME, True)
+    db = psnr(out, plain, 255.0)
+    print(f"[swinir] SwinIR-M x4 {SWIN_FRAME[0]}x{SWIN_FRAME[1]} bf16: {runner.last_mode} on "
+          f"{plan.pad_h}x{plan.pad_w}, {plan.n_tiles} tail tiles; {ms:.2f} ms a frame; launches "
+          f"a frame {counts}; {db:.2f} dB against ops.plain_path", flush=True)
+    want = {"window_attn": 36, "fused_layer_norm": 74, "tail_conv": 4}
+    if runner.last_mode != "hybrid" or (plan.pad_h, plan.pad_w) != (544, 960) or \
+            counts != want or db < MIN_PSNR_DB or out.shape != (2160, 3840, 3):
+        fail(f"[swinir] want hybrid on 544x960, launches {want} and >= {MIN_PSNR_DB} dB")
+    return counts
+
+
 def synth_cyclegan_state(torch, seed, n_blocks=CG_BLOCKS, ngf=CG_NGF):
     """A seeded random-init CycleGAN resnet generator state dict in the
     reference's key layout (a copy of tools/synth_params.py's
@@ -1675,7 +1856,7 @@ def phase_cyclegan(dev, work):
     n_groups = sum(g[0] for g in groups.values())
     want = {"fused_rdb": 0, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0, "tail_conv": 0,
             "fused_dilated_block": 0, "fused_resnet_block": CG_BLOCKS * n_groups,
-            "fused_instance_norm": CG_NORMS * n_groups}
+            "fused_instance_norm": CG_NORMS * n_groups, "window_attn": 0, "fused_layer_norm": 0}
     if runner.last_mode != "auto":
         fail(f"tile_mode auto ran {runner.last_mode!r} for the CycleGAN")
     if counts != want:
@@ -2486,7 +2667,7 @@ def phase_batch(dev, work):
     whole_p = select_presets("resnet_9blocks")
     whole_p.chop = False
     want = {"fused_rdb": 0, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0, "tail_conv": 0,
-            "fused_dilated_block": 0}
+            "fused_dilated_block": 0, "window_attn": 0, "fused_layer_norm": 0}
     cg = {}
     for dt in (bf16, fp32):
         def cg_launches(blocks, dt=dt):  # the norms take their kernel in bf16 alone
@@ -3164,7 +3345,8 @@ def phase_parallel(dev, work, main, halo_shape=(1, 1088, 1920, NF)):
           f"{dp_wall:.3f} s", flush=True)
     if dp_counts != {"fused_rdb": 69 * slices, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0,
                      "fused_resnet_block": 0, "tail_conv": 4 * slices,
-                     "fused_dilated_block": 0, "fused_instance_norm": 0}:
+                     "fused_dilated_block": 0, "fused_instance_norm": 0, "window_attn": 0,
+                     "fused_layer_norm": 0}:
         fail(f"dp tiles launched {dp_counts}, expected 69 x {slices} fused_rdb and 4 x "
              f"{slices} tail_conv (a forward's tail per slice)")
     if share < 0.999 or db < MIN_PSNR_DB or err32 > 1e-5 or err_tb > 5e-4 or len(dp_written) != 1:
@@ -3426,6 +3608,8 @@ def main() -> int:
             rb = phase_resnet_block(dev)
             in_row = phase_instance_norm(dev)
             cg_counts = phase_cyclegan(dev, work)
+            wa_row = phase_window_attn(dev, reports)
+            wa_row["launches"] = phase_swinir(dev, work)["window_attn"]
             rb["launches"] = cg_counts["fused_resnet_block"]
             in_row["launches"] = cg_counts["fused_instance_norm"]
             dil_row["launches"] = phase_zoo(dev, work, main)["ppon"]["dilated_launches"]
@@ -3462,7 +3646,10 @@ def main() -> int:
         {"name": "fused_instance_norm", "route": "cuda",
          "source": "innfer_tpu_torch/ops/csrc/instance_norm.cu",
          "replaces": "XLA's instance norm of innfer_tpu/nn/functional.py (no TPU kernel)",
-         **in_row}]
+         **in_row},
+        {"name": "window_attn", "route": "cuda",
+         "source": "innfer_tpu_torch/ops/csrc/window_attn.cu",
+         "replaces": "none: the JAX package has no SwinIR", **wa_row}]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops", "bound_share")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))

@@ -17,6 +17,8 @@ from innfer_tpu_torch.config.defaults import get_network_config
 
 StateDict = Dict[str, Any]
 
+SWINIR_KEY = "layers.0.residual_group.blocks.0.attn.relative_position_bias_table"
+
 
 def load_checkpoint(path: str) -> StateDict:
     """Load a ``.pth``/``.pt`` state dict as ``{key: CPU tensor}``.
@@ -46,6 +48,9 @@ def fingerprint_arch(state: StateDict) -> Tuple[str, StateDict]:
     are converted to the flattened esrgan layout on the way."""
     if "SCPA_trunk.0.conv1_a.weight" in state:
         return "pan", state
+    if SWINIR_KEY in state:
+        # ahead of conv_first, which SwinIR shares with the mESRGAN layout
+        return "swinir", state
     if "model.1.sub.0.res.0.weight" in state:
         return "srgan", state
     if "conv_first.weight" in state:
@@ -71,6 +76,7 @@ def infer_params(arch: str, state: StateDict, scale: Optional[int] = None,
     wbcunet: scale 1, pt mode, nf from ``conv``.
     ppon and pan: nb, nf, out_nc and scale from key names and shapes (the
     reference falls back to library defaults for these, run.py:157-163).
+    swinir: :func:`swinir_params`.
     """
     if arch in ("esrgan", "srgan"):
         scale2x = 0
@@ -118,6 +124,8 @@ def infer_params(arch: str, state: StateDict, scale: Optional[int] = None,
         scale = scale or 2 ** (len(crm_idx) - 2)
         net = {"type": arch, "in_nc": int(state["CFEM.0.weight"].shape[1]),
                "out_nc": out_nc, "nf": nf, "nb": nb}
+    elif arch == "swinir":
+        net = swinir_params(state)   # its upscale from the tail's keys
     elif arch == "pan":
         nb = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("SCPA_trunk."))
         nf = int(state["conv_first.weight"].shape[0])
@@ -133,6 +141,43 @@ def infer_params(arch: str, state: StateDict, scale: Optional[int] = None,
     else:
         raise ValueError(f"cannot infer params for arch [{arch}]")
     return get_network_config(net, scale if scale else 1)
+
+
+def swinir_params(state: StateDict) -> Dict[str, Any]:
+    """SwinIR's hyperparameters from its keys and shapes: embed_dim and
+    in_chans from ``conv_first``, each group's depth and heads from its
+    blocks and their bias tables, the window from a table's (2 w - 1)^2
+    rows, mlp_ratio from ``fc1``, the upsampler from the tail's keys
+    (``conv_up1``: nearest+conv, x4 with ``conv_up2``; ``upsample.*`` with
+    ``conv_before_upsample``: pixelshuffle, without: pixelshuffledirect;
+    neither: none), resi_connection from ``layers.0.conv``."""
+    groups = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("layers."))
+    depths, heads = [], []
+    for i in range(groups):
+        pre = f"layers.{i}.residual_group.blocks."
+        depths.append(1 + max(int(k[len(pre):].split(".")[0]) for k in state
+                              if k.startswith(pre)))
+        heads.append(int(state[f"{pre}0.attn.relative_position_bias_table"].shape[1]))
+    rows = int(state[SWINIR_KEY].shape[0])
+    window = (round(rows ** 0.5) + 1) // 2
+    embed = int(state["conv_first.weight"].shape[0])
+    hidden = int(state["layers.0.residual_group.blocks.0.mlp.fc1.weight"].shape[0])
+    n_up = sum(1 for k in state if k.startswith("upsample.") and k.endswith(".weight"))
+    if "conv_up1.weight" in state:
+        upsampler, upscale = "nearest+conv", 4 if "conv_up2.weight" in state else 2
+    elif "conv_before_upsample.0.weight" in state:
+        upsampler, upscale = "pixelshuffle", 2 ** n_up
+    elif n_up:
+        w = state["upsample.0.weight"]
+        upsampler = "pixelshuffledirect"
+        upscale = round((w.shape[0] // int(state["conv_first.weight"].shape[1])) ** 0.5)
+    else:
+        upsampler, upscale = "", 1
+    resi = "1conv" if "layers.0.conv.weight" in state else "3conv"
+    return {"type": "swinir", "in_chans": int(state["conv_first.weight"].shape[1]),
+            "embed_dim": embed, "depths": depths, "num_heads": heads, "window_size": window,
+            "mlp_ratio": hidden / embed, "upsampler": upsampler, "resi_connection": resi,
+            "upscale": upscale}
 
 
 def detect_and_infer(state: StateDict, scale: Optional[int] = None

@@ -1,5 +1,5 @@
-"""State-dict remap passes: SWA unwrap and the mESRGAN key-layout
-conversion, both ways.
+"""State-dict remap passes: SWA unwrap, the mESRGAN key-layout
+conversion, both ways, and SwinIR's tail onto the SR tail's positions.
 
 The port's own copy of ``innfer_tpu/checkpoint/remaps.py`` (reference
 utils/utils.py:629-720).  Values pass through untouched, so the passes
@@ -92,4 +92,29 @@ def normal_to_mod(state: StateDict) -> StateDict:
         stem, _, leaf = k.rpartition(".")
         if stem in direct and leaf in ("weight", "bias"):
             out[f"{direct[stem]}.{leaf}"] = v
+    return out
+
+
+# SwinIR's nearest+conv x4 tail, in the flattened positions of
+# ``models/common.sr_tail`` at start 0: [Up, conv_up1, act, Up, conv_up2,
+# act, conv_hr, act, conv_last]
+_SWINIR_TAIL = {"conv_up1": "tail.1", "conv_up2": "tail.4", "conv_hr": "tail.6",
+                "conv_last": "tail.8"}
+# buffers of the published module that the port computes for each canvas
+_SWINIR_BUFFERS = re.compile(r".*\.(relative_position_index|attn_mask)$")
+
+
+def swinir_to_seq(state: StateDict) -> StateDict:
+    """A SwinIR state dict (``network_swinir.py``'s keys) with its x4 tail's
+    convs renamed to the SR tail's positions (``conv_up1`` ``tail.1``,
+    ``conv_up2`` ``tail.4``, ``conv_hr`` ``tail.6``, ``conv_last``
+    ``tail.8``) and the ``relative_position_index`` and ``attn_mask``
+    buffers dropped: the program gathers the bias and makes the mask for
+    the canvas it runs on."""
+    out: StateDict = {}
+    for k, v in state.items():
+        if _SWINIR_BUFFERS.fullmatch(k):
+            continue
+        stem, _, leaf = k.rpartition(".")
+        out[f"{_SWINIR_TAIL[stem]}.{leaf}" if stem in _SWINIR_TAIL else k] = v
     return out

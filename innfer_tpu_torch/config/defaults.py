@@ -21,6 +21,8 @@ def _match_kind(kind: str) -> str:
         return "sr_resnet"
     if "ppon" in kind:
         return "ppon"
+    if "swinir" in kind:
+        return "swinir"
     if kind in ("pan_net", "pan"):
         return "pan_net"
     if "wbcunet" in kind:
@@ -100,6 +102,21 @@ def get_network_config(network: Union[str, Dict[str, Any]], scale: int) -> Dict[
             upscale=pop("scale", scale),
             act_type=pop("net_act", None) or pop("act_type", "leakyrelu"),
             alpha=pop("alpha", 1),
+        )
+    elif canon == "swinir":
+        # the released real-world x4 model M (main_test_swinir.py --task real_sr)
+        cfg.update(
+            upscale=pop("upscale", scale if scale > 1 else 4),
+            in_chans=pop("in_chans", 3),
+            img_size=pop("img_size", 64),
+            window_size=pop("window_size", 8),
+            img_range=pop("img_range", 1.0),
+            depths=list(pop("depths", [6] * 6)),
+            embed_dim=pop("embed_dim", 180),
+            num_heads=list(pop("num_heads", [6] * 6)),
+            mlp_ratio=pop("mlp_ratio", 2.0),
+            upsampler=pop("upsampler", "nearest+conv"),
+            resi_connection=pop("resi_connection", "1conv"),
         )
     elif canon == "pan_net":
         cfg.update(

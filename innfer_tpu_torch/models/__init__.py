@@ -2,8 +2,9 @@
 
 The port's registry over the reference's types (architectures/__init__.py:
 5-40): RRDBNet, mESRGAN, SRResNet, PPON, PAN, the pix2pix UNet, the
-CycleGAN ResNet and WBC.  evsrgan (RRDBNet with Conv3D) is built by
-``rrdb._build_3d``, for the library only: ``InferenceSession`` refuses it.
+CycleGAN ResNet and WBC, and SwinIR, which the reference's registry
+lacks.  evsrgan (RRDBNet with Conv3D) is built by ``rrdb._build_3d``, for
+the library only: ``InferenceSession`` refuses it.
 """
 from __future__ import annotations
 
@@ -34,6 +35,10 @@ def get_network(cfg: Dict[str, Any]) -> ModelDef:
         from innfer_tpu_torch.models import ppon
 
         return ppon.build(cfg)
+    if kind == "swinir":
+        from innfer_tpu_torch.models import swinir
+
+        return swinir.build(cfg)
     if kind == "pan_net":
         from innfer_tpu_torch.models import pan
 

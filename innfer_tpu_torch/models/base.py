@@ -75,6 +75,14 @@ class ModelDef:
     apply_trunk: Optional[Callable[[Params, torch.Tensor], torch.Tensor]] = None
     apply_tail: Optional[Callable[[Params, torch.Tensor], torch.Tensor]] = None
     tail_halo: int = 0
+    # the hybrid trunk's canvas for an h x w input, (rows, columns); None is
+    # tiling/engine.hybrid_dims, the TPU kernel's border rule.  A trunk whose
+    # receptive field spans the image (SwinIR's shifted windows) pads as
+    # its published forward does instead.
+    hybrid_canvas: Optional[Callable[[int, int], Tuple[int, int]]] = None
+    # regex patterns (fullmatch) of >= 2-D parameters kept fp32 like the
+    # biases (SwinIR's relative-position bias tables, which fp32 scores add)
+    fp32_keys: Tuple[str, ...] = ()
     # regex patterns (fullmatch) of keys dropped under non-strict loading
     # (pre-0.4 InstanceNorm running stats in CycleGAN checkpoints)
     ignore_key_patterns: Tuple[str, ...] = ()
@@ -109,9 +117,10 @@ def convert_state(model: ModelDef, state: Mapping[str, Any], *,
                   device: Optional[torch.device] = None,
                   strict: bool = True) -> ParamDict:
     """A torch state dict -> this model's params on ``device``.  >=2-D
-    tensors take ``param_dtype``; biases and other <=1-D tensors stay fp32
-    for numerical fidelity.  ``strict=False`` drops the keys matching the
-    model's ``ignore_key_patterns`` (reference run.py:305-309)."""
+    tensors take ``param_dtype``; biases and other <=1-D tensors, and the
+    model's ``fp32_keys``, stay fp32 for numerical fidelity.
+    ``strict=False`` drops the keys matching the model's
+    ``ignore_key_patterns`` (reference run.py:305-309)."""
     if model.remap is not None:
         state = model.remap(state)
     params = ParamDict()
@@ -119,7 +128,7 @@ def convert_state(model: ModelDef, state: Mapping[str, Any], *,
         if not strict and _matches(model.ignore_key_patterns, key):
             continue
         t = _as_tensor(val)
-        dt = torch.float32 if t.dim() <= 1 else param_dtype
+        dt = torch.float32 if t.dim() <= 1 or _matches(model.fp32_keys, key) else param_dtype
         params[key] = t.to(device=device, dtype=dt).contiguous()
     return params
 

@@ -218,6 +218,40 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) ->
     return out.to(x.dtype)
 
 
+@contextlib.contextmanager
+def _fp32_bf16_reductions():
+    """cuBLAS keeps a bf16 GEMM's split-K partial sums in fp32 while the
+    block runs (``allow_bf16_reduced_precision_reduction`` off); the
+    previous flag is restored."""
+    prev = _MATMUL.allow_bf16_reduced_precision_reduction
+    _MATMUL.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        _MATMUL.allow_bf16_reduced_precision_reduction = prev
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``nn.Linear`` over the last axis, ``w`` in its (out, in) layout.  fp32
+    runs true fp32.  A bf16 ``x`` runs one bf16 GEMM on the tensor cores
+    (``torch.addmm``) with fp32 accumulation and one rounding of the sum:
+    the bias joins the fp32 accumulator before that rounding, but as bf16
+    (a caller keeps ``b`` in x's dtype to spare the cast), a departure from
+    the conv route's fp32 bias that a GEMM's bias epilogue forces; no fp32
+    copy of ``x`` is made.  Transformer linears (SwinIR); the Conv1d
+    projections keep :func:`dense`."""
+    dt = x.dtype
+    b = None if b is None else b.to(dt)
+    if dt in (torch.float32, torch.float64):
+        with true_fp32(dt):
+            return TF.linear(x, w.to(dt), b)
+    x2 = x.reshape(-1, x.shape[-1])
+    wt = w.to(dt).t()
+    with _fp32_bf16_reductions():
+        out = torch.mm(x2, wt) if b is None else torch.addmm(b, x2, wt)
+    return out.reshape(*x.shape[:-1], w.shape[0])
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor, *,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``a @ b`` (batched) with an fp32 accumulator, rounded once to

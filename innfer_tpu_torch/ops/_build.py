@@ -146,6 +146,12 @@ SIGNATURES = {
     "dilated_block": {
         "innfer_dilated_block": ([_vp] * 9 + [_i] * 3 + [_vp], _i),
     },
+    "layer_norm": {
+        "innfer_layer_norm": ([_vp] * 4 + [_ll, _i, _i, _f, _vp], _i),
+    },
+    "window_attn": {
+        "innfer_window_attn": ([_vp] * 3 + [_i] * 7 + [_f, _vp], _i),
+    },
     "instance_norm": {
         "innfer_instance_norm": ([_vp] * 4 + [_i] * 4 + [_f, _i, _vp], _i),
         "innfer_instance_norm_chunks": ([_i] * 4, _i),
@@ -194,6 +200,16 @@ def dilated_block_library() -> ctypes.CDLL:
 def instance_norm_library() -> ctypes.CDLL:
     """Instance norm + ReLU on a conv's fp32 accumulator (``csrc/instance_norm.cu``)."""
     return library("instance_norm")
+
+
+def layer_norm_library() -> ctypes.CDLL:
+    """LayerNorm over bf16 tokens (``csrc/layer_norm.cu``)."""
+    return library("layer_norm")
+
+
+def window_attn_library() -> ctypes.CDLL:
+    """SwinIR's shifted-window attention (``csrc/window_attn.cu``)."""
+    return library("window_attn")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

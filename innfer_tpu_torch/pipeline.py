@@ -473,7 +473,7 @@ class InferenceSession:
                         compute_dtype=self.compute_dtype, trunk_fn=model.apply_trunk,
                         tail_fn=model.apply_tail, tail_halo=model.tail_halo,
                         trunk_kernel=model.trunk_kernel, output_index=model.output_index,
-                        mesh=mesh)
+                        mesh=mesh, hybrid_canvas=model.hybrid_canvas)
             self.stages.append(Stage(model, params, self.presets.chop or spatial, runner,
                                      mesh=mesh))
         self._fused_runner: Optional[TiledRunner] = None

@@ -12,7 +12,8 @@ size and the plan's blend constants on the device.
     from its own tiles.  On a device mesh (``parallel/mesh.py``) a group
     is ``tile_batch`` tiles, cut into even slices over the data devices.
   * ``hybrid_apply``: the whole-image LR trunk on an input padded to
-    ``hybrid_dims``, then a tiled upsample tail recomposed the same way.
+    ``hybrid_dims`` (or the model's own ``hybrid_canvas``), then a tiled
+    upsample tail recomposed the same way.
 
 Spans (``observability.span``, recorded under a profiler): a runner's call
 is ``innfer.tiling``, the hybrid trunk ``innfer.trunk``, each dispatch
@@ -269,6 +270,8 @@ class TiledRunner:
     whole-image trunk runs one image at a time.  ``mesh``: the tile groups
     are split over its data devices (``tiled_apply``); hybrid mode, whose
     trunk is one whole-image forward, is refused on a mesh.
+    ``hybrid_canvas``: the hybrid trunk's canvas for an h x w image (the
+    model's ``ModelDef.hybrid_canvas``); by default :func:`hybrid_dims`.
     """
 
     # whole-trunk input-pixel cap for hybrid mode, the JAX package's
@@ -281,7 +284,8 @@ class TiledRunner:
                  compute_dtype: Optional[torch.dtype] = None,
                  trunk_fn: Callable = None, tail_fn: Callable = None,
                  tail_halo: int = 0, trunk_kernel: bool = False,
-                 output_index: Optional[int] = None, mesh: Optional[Mesh] = None):
+                 output_index: Optional[int] = None, mesh: Optional[Mesh] = None,
+                 hybrid_canvas: Optional[Callable[[int, int], Tuple[int, int]]] = None):
         if mode not in ("auto", "uniform", "reference", "hybrid"):
             raise ValueError(f"unknown tile mode {mode!r}; use auto, uniform, "
                              "reference or hybrid")
@@ -310,6 +314,7 @@ class TiledRunner:
         self.trunk_kernel = trunk_kernel
         self.output_index = output_index
         self.mesh = mesh
+        self.hybrid_canvas = hybrid_canvas or hybrid_dims
         self._plans: Dict[tuple, TilePlan] = {}
         self._consts: Dict[tuple, PlanConsts] = {}
         self.last_mode: Optional[str] = None
@@ -338,7 +343,7 @@ class TiledRunner:
         return self.mode
 
     def _hybrid_plan(self, h: int, w: int) -> TilePlan:
-        ph, pw = hybrid_dims(h, w)
+        ph, pw = self.hybrid_canvas(h, w)
         if isinstance(self.tile, (tuple, list)):
             # user-specified tail grid, overlap clamped up to the
             # seam-exactness bound (2 * tail_halo)

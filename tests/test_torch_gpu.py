@@ -1230,3 +1230,196 @@ def test_cyclegan_1080p_frame_runs_its_norms_on_the_kernel_on_card(cuda_device, 
     assert outs["kernel"].shape == (1080, 1920, 3) and outs["kernel"].std() > 1.0
     mse = np.mean((outs["kernel"].astype(np.float64) - outs["plain"]) ** 2)
     assert 10 * np.log10(255.0 ** 2 / max(mse, 1e-12)) >= 40
+
+
+def _swinir_published(**kw):
+    """The published SwinIR module (``tests/swinir_reference.py``), seeded."""
+    import os.path as osp
+    import sys
+
+    sys.path.insert(0, osp.dirname(osp.abspath(__file__)))
+    import swinir_reference as SR
+
+    cfg = dict(img_size=64, embed_dim=180, depths=[2, 2], num_heads=[6, 6], window_size=8,
+               mlp_ratio=2, upscale=4, upsampler="nearest+conv")
+    return SR.seeded(SR.SwinIR(**{**cfg, **kw}), 11)
+
+
+def _qkv_case(dev, shape, heads, hd, seed):
+    """A (B, H, W, 3 heads 32) qkv as the packed GEMM writes it (zeros in
+    each head's padding) and a relative-position bias of std 1."""
+    from innfer_tpu_torch.ops import window_attn as WA
+
+    g = torch.Generator().manual_seed(seed)
+    c = heads * hd
+    w, b = torch.randn(3 * c, c, generator=g) / c ** 0.5, torch.randn(3 * c, generator=g) * 0.1
+    wp, bp = WA.pack_qkv(w, b, heads, WA.padded(c))
+    x = torch.nn.functional.pad(torch.randn(*shape, c, generator=g) * 1.5, (0, WA.padded(c) - c))
+    qkv = (x.to(dev) @ wp.to(dev).t() + bp.to(dev)).to(torch.bfloat16)
+    return qkv, WA.gather_bias(torch.randn(225, heads, generator=g).to(dev), 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [0, 4])
+@pytest.mark.parametrize("shape,heads,hd", [((1, 544, 960), 6, 30), ((2, 24, 40), 6, 30),
+                                            ((3, 16, 24), 2, 12), ((1, 40, 8), 3, 32)])
+def test_window_attn_matches_plain_on_card(cuda_device, shape, heads, hd, shift):
+    """window_attn at the SwinIR cell's canvas (544 x 960, 6 heads of 30)
+    and at ragged ones (images of one window column or row, B of 2 and 3,
+    heads of 12 and 32), shifted and not, against its plain version
+    (``window_attn_reference``, fp32 matmuls on the card) and that version
+    with float64 sums: >= 99.9% of values equal to the plain version (so
+    within one bf16 ulp), every value within two (P is rounded to bf16
+    before P v, so one flipped rounding of a P value moves an output by up
+    to 2^-9 |v|, near a rounding boundary a second ulp), >= 99.9% equal to
+    the float64 version, the padded channels zero."""
+    from innfer_tpu_torch.ops import window_attn as WA
+
+    qkv, bias = _qkv_case(cuda_device, shape, heads, hd, sum(shape) + shift)
+    kw = dict(heads=heads, head_dim=hd, window=8, shift=shift)
+    before = WA.window_attn.launches
+    out = WA.window_attn(qkv, bias, **kw)
+    plain = WA.window_attn_reference(qkv, bias, **kw)
+    exact = WA.window_attn_reference(qkv, bias, acc=torch.float64, **kw)
+    torch.cuda.synchronize()
+    assert WA.window_attn.launches - before == 1
+    c = heads * hd
+    assert out.shape == (*shape, WA.padded(c)) and not out[..., c:].any()
+    share = lambda a, b: (a == b).float().mean().item()  # noqa: E731
+    ulp = 2 ** -7 * plain.float().abs() + 1e-3 * max(1.0, plain.float().abs().max().item())
+    assert ((out.float() - plain.float()).abs() <= 2 * ulp).all().item()
+    assert share(out, plain) >= 0.999 and share(out, exact) >= 0.999
+
+
+@pytest.mark.gpu
+def test_window_attn_is_as_often_exact_as_plain_at_the_cells_canvas(cuda_device):
+    """At the SwinIR cell's canvas, pooled over both shifts and three seeds
+    (18.8 M values), window_attn is at least as often equal to the float64
+    version as the plain version (fp32 matmuls on the card) is.  The
+    tensor cores add the products of q k^T and P v without rounding to
+    nearest, where cuBLAS's fp32 FMAs round each; the two shares differ by
+    a handful of values of a 3.1 M-value draw, either way from draw to draw
+    (99.98696% against 99.98711% on one draw, 99.9872% against 99.9863% on
+    another, H100 80GB HBM3), so one draw cannot tell them apart."""
+    from innfer_tpu_torch.ops import window_attn as WA
+
+    eq_kernel = eq_plain = 0
+    for shift in (0, 4):
+        for seed in (1, 2, 3):
+            qkv, bias = _qkv_case(cuda_device, (1, 544, 960), 6, 30, 100 * seed + shift)
+            kw = dict(heads=6, head_dim=30, window=8, shift=shift)
+            exact = WA.window_attn_reference(qkv, bias, acc=torch.float64, **kw)
+            eq_kernel += (WA.window_attn(qkv, bias, **kw) == exact).sum().item()
+            eq_plain += (WA.window_attn_reference(qkv, bias, **kw) == exact).sum().item()
+    assert eq_kernel >= eq_plain, (eq_kernel, eq_plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,width", [((1, 544, 960, 180), 184), ((3, 17, 9, 24), 24),
+                                         ((2, 5, 7, 1024), 1024), ((4, 33, 180), 192)])
+def test_layer_norm_matches_plain_on_card(cuda_device, shape, width):
+    """fused_layer_norm at the SwinIR cell's tokens (180 channels into 184)
+    and ragged ones, on tokens with per-channel offsets: >= 99.9% equal to
+    its plain version (nn.LayerNorm in fp32, rounded once), at least as
+    often equal to that composition in float64, the padding zero."""
+    from innfer_tpu_torch.ops import layer_norm as LNK
+
+    g = torch.Generator().manual_seed(sum(shape))
+    c = shape[-1]
+    x = (torch.randn(*shape, generator=g) * 2 + torch.randn(c, generator=g) * 3)
+    x = x.to(cuda_device, torch.bfloat16)
+    w = (1 + 0.3 * torch.randn(c, generator=g)).to(cuda_device)
+    b = (0.2 * torch.randn(c, generator=g)).to(cuda_device)
+    before = LNK.fused_layer_norm.launches
+    out = LNK.fused_layer_norm(x, w, b, out_width=width)
+    plain = LNK.layer_norm_reference(x, w, b, out_width=width)
+    exact = LNK.layer_norm_reference(x.double(), w, b, out_width=width).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert LNK.fused_layer_norm.launches - before == 1
+    assert out.shape == (*shape[:-1], width) and not out[..., c:].any()
+    share = lambda a, b: (a == b).float().mean().item()  # noqa: E731
+    _within_one_ulp(out, plain)
+    assert share(out, plain) >= 0.999 and share(out, exact) >= share(plain, exact)
+
+
+@pytest.mark.gpu
+def test_swinir_runs_its_layers_on_the_kernels_on_card(cuda_device):
+    """A bf16 SwinIR (embed 180, 6 heads, two groups of two layers) through
+    the runner's auto mode on the card: hybrid on the window-multiple
+    canvas, every attention on the kernel (the counters and the device's
+    winattn_fwd launches), every LayerNorm on its kernel (one a layer's
+    norm, one after conv_first, one after the groups), the tail on the tail
+    conv, and no PyTorch attention kernel."""
+    from innfer_tpu_torch import observability as obs
+    from innfer_tpu_torch.loader import load_model_from_state
+    from innfer_tpu_torch.checkpoint.detect import detect_and_infer
+    from innfer_tpu_torch.ops import layer_norm as LNK
+    from innfer_tpu_torch.ops import window_attn as WA
+    from innfer_tpu_torch.ops.tail_conv import tail_conv
+    from innfer_tpu_torch.tiling.engine import TiledRunner
+
+    _, cfg, state = detect_and_infer(_swinir_published().state_dict())
+    model, params = load_model_from_state(state, cfg, param_dtype=torch.bfloat16,
+                                          device=cuda_device)
+    runner = TiledRunner(model.apply, model.scale, mode="auto", trunk_fn=model.apply_trunk,
+                         tail_fn=model.apply_tail, tail_halo=model.tail_halo,
+                         trunk_kernel=model.trunk_kernel, hybrid_canvas=model.hybrid_canvas,
+                         compute_dtype=torch.bfloat16)
+    x = torch.rand(1, 37, 300, 3, device=cuda_device)
+    with torch.no_grad():
+        runner(params, x)
+        torch.cuda.synchronize()
+        obs.reset()
+        attn, norms, tails = WA.window_attn.launches, LNK.fused_layer_norm.launches, \
+            tail_conv.launches
+        try:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                out = runner(params, x)
+                torch.cuda.synchronize()
+            counters = obs.summary()["counters"]
+        finally:
+            obs.reset()
+    assert runner.last_mode == "hybrid"
+    plan = runner.plan_for(37, 300, True)
+    assert (plan.pad_h, plan.pad_w) == (40, 304)
+    assert out.shape == (1, 148, 1200, 3) and torch.isfinite(out).all()
+    assert counters["window_attns"] == counters["window_attns_fused"] == 4
+    assert WA.window_attn.launches - attn == 4 and LNK.fused_layer_norm.launches - norms == 10
+    tails = tail_conv.launches - tails
+    assert tails > 0 and tails % 4 == 0     # four tail convs a tile group
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("winattn_fwd" in k for k in kernels) == 4
+    assert sum("lnorm_rows" in k for k in kernels) == 10
+    assert not any("attention" in k.lower() or "flash" in k.lower() or "fmha" in k.lower()
+                   for k in kernels)
+
+
+@pytest.mark.gpu
+def test_swinir_on_card_matches_the_published_module(cuda_device):
+    """SwinIR (embed 180, 6 heads, two groups of two layers) on the card
+    against the published module (``tests/swinir_reference.py``) on the
+    card in true fp32: the port in fp32 (its plain versions) within 1e-4
+    (the header's fp32 bar), the port in bf16 (the kernels) >= 30 dB, the
+    zoo's bf16 bar."""
+    from innfer_tpu_torch.checkpoint.detect import detect_and_infer
+    from innfer_tpu_torch.loader import load_model_from_state
+
+    ref = _swinir_published().to(cuda_device)
+    _, cfg, state = detect_and_infer(ref.state_dict())
+    x = torch.rand(1, 3, 45, 70, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(3))
+    with torch.no_grad(), true_fp32(torch.float32):
+        want = ref(x)
+    for dtype in (torch.float32, torch.bfloat16):
+        model, params = load_model_from_state(state, cfg, param_dtype=dtype, device=cuda_device)
+        with torch.no_grad():
+            got = model.apply(params, x.permute(0, 2, 3, 1).to(dtype)).permute(0, 3, 1, 2).float()
+        torch.cuda.synchronize()
+        assert got.shape == want.shape
+        if dtype == torch.float32:
+            assert (got - want).abs().max().item() <= 1e-4
+        else:
+            mse = (got - want).square().mean().item()
+            assert 10 * math.log10(1.0 / max(mse, 1e-12)) >= 30
