@@ -132,11 +132,17 @@ the final result line):
               the plain version and scaled_dot_product_attention on
               pre-partitioned windows (a yardstick); its registers and
               spills; fused_layer_norm (ops/layer_norm.py) at the cell's
-              tokens beside its bound and F.layer_norm; and [swinir]:
-              SwinIR-M x4 at its published widths (the benchmark's seeded
-              weights) through InferenceSession with arch infer on a
-              540x960 frame: hybrid on 544x960, 36 window_attn, 74
-              fused_layer_norm and 4 tail conv launches a frame, >= 40 dB
+              tokens beside its bound and F.layer_norm; [token_gemm]:
+              token_linear (ops/token_gemm.py) as a Swin layer runs proj
+              and fc2 with the residual and fc1 with GELU at the cell's
+              544x960 tokens, >= 99.9% equal to its plain version and
+              within one ulp of y plus one of the result, timed beside its
+              byte bound, the plain composition and torch.addmm + add or
+              GELU (a yardstick); and [swinir]: SwinIR-M x4 at its
+              published widths (the benchmark's seeded weights) through
+              InferenceSession with arch infer on a 540x960 frame: hybrid
+              on 544x960, 36 window_attn, 74 fused_layer_norm, 108
+              token_linear and 4 tail conv launches a frame, >= 40 dB
               against ops.plain_path;
   9. zoo      seeded synthetic SRResNet 4x (nf=64, nb=16, pixelshuffle,
               relu, CNA), PAN 4x (nf=40, unf=24, nb=16, self-attention)
@@ -341,7 +347,7 @@ CG_BLOCKS, CG_NGF = 9, 64         # CycleGAN resnet_9blocks at its published wid
 CG_NORMS = 5                      # its instance norms outside the blocks, a forward
 ZOO_BF16_DB, ZOO_FP32_DB = 30.0, 80.0   # bf16 vs fp32 session (u8); fp32 card vs CPU
 LIBS = ("rdb", "resnet_block", "tail_conv", "dilated_block", "instance_norm", "window_attn",
-        "layer_norm")
+        "layer_norm", "token_gemm")
 # no tensor-core conv: no HGMMA or UTMALDG to count (window_attn's products
 # run on mma.sync)
 NO_CONV_LIBS = ("instance_norm", "window_attn", "layer_norm")
@@ -357,6 +363,10 @@ IN_SHAPES = ((8, 552, 256, 64), (8, 276, 128, 128), (8, 138, 64, 256))
 # multiple): 6 heads of 30, tokens of 180 channels
 SWIN_CANVAS, SWIN_HEADS, SWIN_HD = (1, 544, 960), 6, 30
 SWIN_FRAME = (540, 960)
+# a Swin layer's linears on the token GEMM: (K in, N, epilogue); K is read
+# 184 wide where the LayerNorm or the attention pads 180 channels
+TOKEN_SITES = {"proj": (180, 180, "residual"), "fc1": (180, 360, "gelu"),
+               "fc2": (360, 180, "residual")}
 
 
 def fail(msg: str) -> None:
@@ -595,6 +605,8 @@ def phase_build() -> dict:
             if spills:
                 fail(f"{where}: the TMA convs spill {spills} B of registers past "
                      f"TMA_SPILL_B")
+            if name == "token_gemm":
+                token_gemm_lines(_build.library(name), reports[name])
         if name in NO_CONV_LIBS:
             continue
         if hgmma == 0:
@@ -605,6 +617,23 @@ def phase_build() -> dict:
     return reports
 
 
+def token_gemm_lines(lib, kernels: dict) -> None:
+    """Per token_gemm instantiation of its library's ptxas report: (K, N,
+    epilogue), registers, spill bytes and dynamic shared memory; a spill
+    fails the build phase."""
+    for func, k in kernels.items():
+        m = re.search(r"token_gemmILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi([01])E", func)
+        if not m:
+            continue
+        kk, n0, n1, n, gelu = (int(v) for v in m.groups())
+        epi = "gelu" if gelu else "residual"
+        print(f"[build] token_gemm K={kk} N={n} ({n0} + {n1} a consumer) {epi}: {k['regs']} "
+              f"registers, {k['spill']} B spilled, {lib.innfer_token_gemm_smem_bytes(kk, n, gelu)} B "
+              f"of shared memory", flush=True)
+        if k["spill"]:
+            fail(f"token_gemm K={kk} N={n} {epi} spills {k['spill']} B of registers")
+
+
 def kernel_counters():
     from innfer_tpu_torch.ops.dilated_block import fused_dilated_block
     from innfer_tpu_torch.ops.instance_norm import fused_instance_norm
@@ -613,10 +642,12 @@ def kernel_counters():
     from innfer_tpu_torch.ops.rdb import fused_rdb, fused_rdb_padded, fused_rrdb_trunk
     from innfer_tpu_torch.ops.resnet_block import fused_resnet_block
     from innfer_tpu_torch.ops.tail_conv import tail_conv
+    from innfer_tpu_torch.ops.token_gemm import token_linear
 
     return {f.__name__: f for f in (fused_rdb, fused_rdb_padded, fused_rrdb_trunk,
                                     fused_resnet_block, tail_conv, fused_dilated_block,
-                                    fused_instance_norm, window_attn, fused_layer_norm)}
+                                    fused_instance_norm, window_attn, fused_layer_norm,
+                                    token_linear)}
 
 
 def reset_counts() -> None:
@@ -1390,7 +1421,7 @@ def phase_chain(dev, work, main):
     want = {"fused_rdb": 0, "fused_rdb_padded": NB * 3 * n, "fused_rrdb_trunk": n,
             "fused_resnet_block": 0, "tail_conv": 4 * main["tail_groups"],
             "fused_dilated_block": 0, "fused_instance_norm": 0, "window_attn": 0,
-            "fused_layer_norm": 0}
+            "fused_layer_norm": 0, "token_linear": 0}
     if counts != want:
         fail(f"INNFER_RDB_CHAIN=1 session launches {counts}; expected {want}")
     dbs = []
@@ -1692,13 +1723,92 @@ def phase_window_attn(dev, kernels=None):
     return row
 
 
+def phase_token_gemm(dev, kernels=None) -> dict:
+    """Row 10 of the kernel table: token_linear (ops/token_gemm.py) at the
+    SwinIR cell's tokens (544 x 960), as a layer runs proj and fc2 with the
+    residual and fc1 with GELU, on weights packed as ``swin_layer`` packs
+    them: >= 99.9% equal to its plain version and every value within one
+    bf16 ulp of the linear's output plus one of the result; then timed with
+    CUDA events beside its bound (the tokens read once at the width they
+    are stored, the residual read once, the output and the weight once),
+    the plain composition (``token_linear_reference``) and the library pair
+    as the yardstick (torch.addmm, then torch.add or GELU: the port never
+    calls it so).  ``kernels``: the libraries' ptxas reports.  Returns a
+    row per linear."""
+    import torch
+    import torch.nn.functional as TF
+
+    from innfer_tpu_torch.nn import functional as NF
+    from innfer_tpu_torch.ops import token_gemm as TG
+
+    n_tok = math.prod(SWIN_CANVAS)
+    g = torch.Generator(device=dev).manual_seed(91)
+    rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)  # noqa: E731
+    reg = {f: r for f, r in (kernels or {}).get("token_gemm", {}).items()}
+    rows = {}
+    for site, (kin, n, epilogue) in TOKEN_SITES.items():
+        k = kin if site == "fc2" else kin + 4
+        x = TF.pad(TF.gelu(rn(n_tok, kin)) if site == "fc2" else rn(n_tok, kin),
+                   (0, k - kin)).to(torch.bfloat16)
+        scale = 0.4 if epilogue == "residual" else 1.0
+        w = TF.pad(rn(n, kin) * scale / kin ** 0.5, (0, k - kin)).to(torch.bfloat16)
+        b = (rn(n) * 0.1).to(torch.bfloat16)
+        res = (rn(n_tok, n) * 2).to(torch.bfloat16) if epilogue == "residual" else None
+        kw = dict(epilogue=epilogue, residual=res)
+        before = TG.token_linear.launches
+        out = TG.token_linear(x, w, b, **kw)
+        plain = TG.token_linear_reference(x, w, b, **kw)
+        y = NF.linear(x, w, b)
+        torch.cuda.synchronize()
+        if TG.token_linear.launches != before + 1:
+            fail(f"token_linear {site}: the wrapper did not launch the kernel")
+        ref = plain.float()
+        err = (out.float() - ref).abs()
+        tol = 2 ** -7 * (ref.abs() + y.float().abs()) + 1e-3 * max(1.0, ref.abs().max().item())
+        within = bool((err <= tol).all())
+        equal = (out == plain).float().mean().item()
+        if not within or equal < 0.999:
+            fail(f"token_linear {site}: {100 * equal:.4f}% equal to its plain version, within "
+                 f"one ulp of y plus one of the result: {within}")
+        del y, tol, plain, ref
+        ms = cuda_ms(lambda: TG.token_linear(x, w, b, **kw), reps=20)
+        plain_ms = cuda_ms(lambda: TG.token_linear_reference(x, w, b, **kw), reps=10)
+        wt = w.t()
+        if epilogue == "residual":
+            lib_ms = cuda_ms(lambda: torch.add(res, torch.addmm(b, x, wt)), reps=10)
+        else:
+            lib_ms = cuda_ms(lambda: TF.gelu(torch.addmm(b, x, wt)), reps=10)
+        nbytes = 2 * (n_tok * k + n_tok * n * (2 if res is not None else 1) + n * k + n)
+        row = {"max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, **bound(2.0 * n_tok * k * n, nbytes)}
+        row.update(rates(2.0 * n_tok * k * n, ms, row["bound_ms"]))
+        r = next((r for f, r in reg.items() if re.search(
+            rf"token_gemmILi{k}ELi\d+ELi\d+ELi{n}ELi{int(epilogue == 'gelu')}E", f)), None)
+        print(f"[token_gemm] {site} ({n_tok}, {k}) -> {n} with the {epilogue}: "
+              f"{100 * equal:.4f}% equal to the plain version, all within one ulp of y plus one; "
+              f"kernel {ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{nbytes / 1e6:.1f} MB), {100 * row['bound_share']:.1f}% of the bound; plain "
+              f"{plain_ms:.4f} ms; torch.addmm + {'add' if res is not None else 'GELU'} "
+              f"{lib_ms:.4f} ms"
+              + (f"; {r['regs']} registers, {r['spill']} B spilled" if r else ""), flush=True)
+        rows[site] = row
+        del x, w, b, res, out, err
+    total = sum(r["ms"] for r in rows.values())
+    floor = sum(r["bound_ms"] for r in rows.values())
+    print(f"[token_gemm] a layer's three: {total:.4f} ms against a bound of {floor:.4f} ms "
+          f"({100 * floor / total:.1f}%); 36 layers a SwinIR-M frame: {36 * total:.2f} ms",
+          flush=True)
+    return rows
+
+
 def phase_swinir(dev, work):
     """SwinIR-M real-world x4 at its published widths (the benchmark's
     seeded weights, ``innbench/reference/swinir.py``) through
     InferenceSession with ``arch: infer`` in bf16, auto -> hybrid on the
     544 x 960 canvas, on a seeded 540 x 960 frame: 36 window_attn, 74
-    fused_layer_norm and 4 tail conv launches a frame, the frame's ms, and
-    >= 40 dB against ``ops.plain_path``."""
+    fused_layer_norm, 108 token_linear (proj, fc1 and fc2 of 36 layers) and
+    4 tail conv launches a frame, the frame's ms, and >= 40 dB against
+    ``ops.plain_path``."""
     import json as _json
 
     import numpy as np
@@ -1736,7 +1846,7 @@ def phase_swinir(dev, work):
     print(f"[swinir] SwinIR-M x4 {SWIN_FRAME[0]}x{SWIN_FRAME[1]} bf16: {runner.last_mode} on "
           f"{plan.pad_h}x{plan.pad_w}, {plan.n_tiles} tail tiles; {ms:.2f} ms a frame; launches "
           f"a frame {counts}; {db:.2f} dB against ops.plain_path", flush=True)
-    want = {"window_attn": 36, "fused_layer_norm": 74, "tail_conv": 4}
+    want = {"window_attn": 36, "fused_layer_norm": 74, "tail_conv": 4, "token_linear": 108}
     if runner.last_mode != "hybrid" or (plan.pad_h, plan.pad_w) != (544, 960) or \
             counts != want or db < MIN_PSNR_DB or out.shape != (2160, 3840, 3):
         fail(f"[swinir] want hybrid on 544x960, launches {want} and >= {MIN_PSNR_DB} dB")
@@ -1856,7 +1966,8 @@ def phase_cyclegan(dev, work):
     n_groups = sum(g[0] for g in groups.values())
     want = {"fused_rdb": 0, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0, "tail_conv": 0,
             "fused_dilated_block": 0, "fused_resnet_block": CG_BLOCKS * n_groups,
-            "fused_instance_norm": CG_NORMS * n_groups, "window_attn": 0, "fused_layer_norm": 0}
+            "fused_instance_norm": CG_NORMS * n_groups, "window_attn": 0, "fused_layer_norm": 0,
+            "token_linear": 0}
     if runner.last_mode != "auto":
         fail(f"tile_mode auto ran {runner.last_mode!r} for the CycleGAN")
     if counts != want:
@@ -2667,7 +2778,8 @@ def phase_batch(dev, work):
     whole_p = select_presets("resnet_9blocks")
     whole_p.chop = False
     want = {"fused_rdb": 0, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0, "tail_conv": 0,
-            "fused_dilated_block": 0, "window_attn": 0, "fused_layer_norm": 0}
+            "fused_dilated_block": 0, "window_attn": 0, "fused_layer_norm": 0,
+            "token_linear": 0}
     cg = {}
     for dt in (bf16, fp32):
         def cg_launches(blocks, dt=dt):  # the norms take their kernel in bf16 alone
@@ -3346,7 +3458,7 @@ def phase_parallel(dev, work, main, halo_shape=(1, 1088, 1920, NF)):
     if dp_counts != {"fused_rdb": 69 * slices, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0,
                      "fused_resnet_block": 0, "tail_conv": 4 * slices,
                      "fused_dilated_block": 0, "fused_instance_norm": 0, "window_attn": 0,
-                     "fused_layer_norm": 0}:
+                     "fused_layer_norm": 0, "token_linear": 0}:
         fail(f"dp tiles launched {dp_counts}, expected 69 x {slices} fused_rdb and 4 x "
              f"{slices} tail_conv (a forward's tail per slice)")
     if share < 0.999 or db < MIN_PSNR_DB or err32 > 1e-5 or err_tb > 5e-4 or len(dp_written) != 1:
@@ -3609,7 +3721,11 @@ def main() -> int:
             in_row = phase_instance_norm(dev)
             cg_counts = phase_cyclegan(dev, work)
             wa_row = phase_window_attn(dev, reports)
-            wa_row["launches"] = phase_swinir(dev, work)["window_attn"]
+            tg_rows = phase_token_gemm(dev, reports)
+            swin = phase_swinir(dev, work)
+            wa_row["launches"] = swin["window_attn"]
+            for row in tg_rows.values():
+                row["launches"] = swin["token_linear"] / len(tg_rows)
             rb["launches"] = cg_counts["fused_resnet_block"]
             in_row["launches"] = cg_counts["fused_instance_norm"]
             dil_row["launches"] = phase_zoo(dev, work, main)["ppon"]["dilated_launches"]
@@ -3649,7 +3765,11 @@ def main() -> int:
          **in_row},
         {"name": "window_attn", "route": "cuda",
          "source": "innfer_tpu_torch/ops/csrc/window_attn.cu",
-         "replaces": "none: the JAX package has no SwinIR", **wa_row}]
+         "replaces": "none: the JAX package has no SwinIR", **wa_row}] + [
+        {"name": f"token_linear.{site}", "route": "cuda",
+         "source": "innfer_tpu_torch/ops/csrc/token_gemm.cu",
+         "replaces": "none: the JAX package has no SwinIR", **row}
+        for site, row in tg_rows.items()]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops", "bound_share")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))

@@ -21,7 +21,12 @@ partition or reverse is copied.  It runs on the hand-written kernel
 wherever ``window_attn.fusable`` holds (bf16 on the card, window 8, heads
 of at most 32 channels), elsewhere the plain version; the tracer's
 counters ``window_attns`` (every layer's attention) and
-``window_attns_fused`` (those on the kernel) say which.  The relative
+``window_attns_fused`` (those on the kernel) say which.  ``proj``,
+``fc1`` and ``fc2`` run with the residual add or GELU in their epilogue on
+``ops/token_gemm.py``'s kernel wherever ``token_gemm.fusable`` holds (bf16
+on the card, at the widths it was built for), elsewhere as the plain
+linear and the add or GELU; counters ``swin_linears`` (three a layer) and
+``swin_linears_fused``.  ``qkv`` stays a plain GEMM.  The relative
 position bias of a layer is gathered once per parameter dict into a
 (heads, 64, 64) fp32 tensor, and the shift mask is made for the canvas at
 hand, as ``calculate_mask(x_size)`` does: the checkpoint's
@@ -60,6 +65,7 @@ from innfer_tpu_torch.models.base import ModelDef, cached
 from innfer_tpu_torch.nn import functional as F
 from innfer_tpu_torch.observability import count
 from innfer_tpu_torch.ops import layer_norm as LN
+from innfer_tpu_torch.ops import token_gemm as TG
 from innfer_tpu_torch.ops import window_attn as WA
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
@@ -96,16 +102,32 @@ def _ln(params, x: torch.Tensor, key: str, width: int) -> torch.Tensor:
     return LN.layer_norm_reference(x, w, b, out_width=width)
 
 
-def _linear(params, x: torch.Tensor, key: str, pack=None) -> torch.Tensor:
-    """The linear ``key`` on x, its weight and bias in the layout ``pack(w,
-    b)`` gives (kept per ParamDict), the bias in x's dtype for the bf16
-    route."""
+def _packed(params, x: torch.Tensor, key: str, pack=None):
+    """The linear ``key``'s weight and bias in the layout ``pack(w, b)``
+    gives (kept per ParamDict), the bias in x's dtype for the bf16 route."""
     w, b = params[f"{key}.weight"], params[f"{key}.bias"]
     if pack is not None:
         w, b = cached(params, ("swin_pack", key, w.dtype, w.device), lambda: pack(w, b))
     if x.dtype not in (torch.float32, torch.float64):
         b = cached(params, ("swin_bias_lowp", key, x.dtype, b.device), lambda: b.to(x.dtype))
-    return F.linear(x, w, b)
+    return w, b
+
+
+def _linear(params, x: torch.Tensor, key: str, pack=None) -> torch.Tensor:
+    """The linear ``key`` on x (:func:`_packed`'s weight and bias)."""
+    return F.linear(x, *_packed(params, x, key, pack))
+
+
+def _token_linear(params, x: torch.Tensor, key: str, pack=None, *, epilogue: str,
+                  residual=None) -> torch.Tensor:
+    """The linear ``key`` on x with its epilogue, ``residual + linear`` or
+    ``gelu(linear)``: on the token GEMM kernel where ``token_gemm.fusable``
+    holds (counted as ``swin_linears_fused``), else its plain version."""
+    w, b = _packed(params, x, key, pack)
+    if TG.fusable(x, w, b, epilogue=epilogue, residual=residual):
+        count("swin_linears_fused", 1)
+        return TG.token_linear(x, w, b, epilogue=epilogue, residual=residual)
+    return TG.token_linear_reference(x, w, b, epilogue=epilogue, residual=residual)
 
 
 def _pad_in(width: int):
@@ -129,6 +151,7 @@ def swin_layer(params, x: torch.Tensor, prefix: str, *, heads: int, window: int,
     c = x.shape[-1]
     cp = WA.padded(c)
     count("window_attns", 1)
+    count("swin_linears", 3)
     qkv = _linear(params, _ln(params, x, f"{prefix}.norm1", cp), f"{prefix}.attn.qkv",
                   lambda w, b: WA.pack_qkv(w, b, heads, cp))
     table = params[f"{prefix}.attn.relative_position_bias_table"]
@@ -141,10 +164,11 @@ def swin_layer(params, x: torch.Tensor, prefix: str, *, heads: int, window: int,
     else:
         a = WA.window_attn_reference(qkv, bias, **kw)
     del qkv
-    x = x + _linear(params, a, f"{prefix}.attn.proj", _pad_in(cp))
+    x = _token_linear(params, a, f"{prefix}.attn.proj", _pad_in(cp), epilogue="residual",
+                      residual=x)
     h = _ln(params, x, f"{prefix}.norm2", cp)
-    h = TF.gelu(_linear(params, h, f"{prefix}.mlp.fc1", _pad_in(cp)))
-    return x + _linear(params, h, f"{prefix}.mlp.fc2")
+    h = _token_linear(params, h, f"{prefix}.mlp.fc1", _pad_in(cp), epilogue="gelu")
+    return _token_linear(params, h, f"{prefix}.mlp.fc2", epilogue="residual", residual=x)
 
 
 def build(cfg: Dict[str, Any]) -> ModelDef:

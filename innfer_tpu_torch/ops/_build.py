@@ -156,6 +156,10 @@ SIGNATURES = {
         "innfer_instance_norm": ([_vp] * 4 + [_i] * 4 + [_f, _i, _vp], _i),
         "innfer_instance_norm_chunks": ([_i] * 4, _i),
     },
+    "token_gemm": {
+        "innfer_token_gemm": ([_vp] * 5 + [_ll, _i, _i, _i, _vp], _i),
+        "innfer_token_gemm_smem_bytes": ([_i] * 3, _i),
+    },
 }
 
 
@@ -210,6 +214,11 @@ def layer_norm_library() -> ctypes.CDLL:
 def window_attn_library() -> ctypes.CDLL:
     """SwinIR's shifted-window attention (``csrc/window_attn.cu``)."""
     return library("window_attn")
+
+
+def token_gemm_library() -> ctypes.CDLL:
+    """SwinIR's token linears with their epilogues (``csrc/token_gemm.cu``)."""
+    return library("token_gemm")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1348,12 +1348,14 @@ def test_swinir_runs_its_layers_on_the_kernels_on_card(cuda_device):
     the runner's auto mode on the card: hybrid on the window-multiple
     canvas, every attention on the kernel (the counters and the device's
     winattn_fwd launches), every LayerNorm on its kernel (one a layer's
-    norm, one after conv_first, one after the groups), the tail on the tail
-    conv, and no PyTorch attention kernel."""
+    norm, one after conv_first, one after the groups), proj, fc1 and fc2 on
+    the token GEMM (three a layer), the tail on the tail conv, and no
+    PyTorch attention kernel."""
     from innfer_tpu_torch import observability as obs
     from innfer_tpu_torch.loader import load_model_from_state
     from innfer_tpu_torch.checkpoint.detect import detect_and_infer
     from innfer_tpu_torch.ops import layer_norm as LNK
+    from innfer_tpu_torch.ops import token_gemm as TGK
     from innfer_tpu_torch.ops import window_attn as WA
     from innfer_tpu_torch.ops.tail_conv import tail_conv
     from innfer_tpu_torch.tiling.engine import TiledRunner
@@ -1372,6 +1374,7 @@ def test_swinir_runs_its_layers_on_the_kernels_on_card(cuda_device):
         obs.reset()
         attn, norms, tails = WA.window_attn.launches, LNK.fused_layer_norm.launches, \
             tail_conv.launches
+        linears = TGK.token_linear.launches
         try:
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
@@ -1386,12 +1389,15 @@ def test_swinir_runs_its_layers_on_the_kernels_on_card(cuda_device):
     assert (plan.pad_h, plan.pad_w) == (40, 304)
     assert out.shape == (1, 148, 1200, 3) and torch.isfinite(out).all()
     assert counters["window_attns"] == counters["window_attns_fused"] == 4
+    assert counters["swin_linears"] == counters["swin_linears_fused"] == 12
     assert WA.window_attn.launches - attn == 4 and LNK.fused_layer_norm.launches - norms == 10
+    assert TGK.token_linear.launches - linears == 12
     tails = tail_conv.launches - tails
     assert tails > 0 and tails % 4 == 0     # four tail convs a tile group
     kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     assert sum("winattn_fwd" in k for k in kernels) == 4
     assert sum("lnorm_rows" in k for k in kernels) == 10
+    assert sum("token_gemm" in k for k in kernels) == 12
     assert not any("attention" in k.lower() or "flash" in k.lower() or "fmha" in k.lower()
                    for k in kernels)
 
@@ -1423,3 +1429,96 @@ def test_swinir_on_card_matches_the_published_module(cuda_device):
         else:
             mse = (got - want).square().mean().item()
             assert 10 * math.log10(1.0 / max(mse, 1e-12)) >= 30
+
+
+def _token_case(dev, site, tokens, seed):
+    """One of a SwinIR-M layer's linears at embed 180 as ``swin_layer``
+    runs it: the tokens it reads (the attention's or the LayerNorm's
+    184-wide rows, zeros past 180, or fc1's 360-wide GELU output), the
+    weight packed as ``swin_layer`` packs it (input columns zero-padded to
+    the rows' width), the bias in bf16, and the residual stream."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    pad = torch.nn.functional.pad
+    kin, n, epilogue = {"proj": (180, 180, "residual"), "fc1": (180, 360, "gelu"),
+                        "fc2": (360, 180, "residual")}[site]
+    k = kin if site == "fc2" else 184
+    scale = 0.4 if epilogue == "residual" else 1.0   # proj and fc2 as the benchmark's weights
+    x = pad(torch.nn.functional.gelu(rn(*tokens, kin)) if site == "fc2" else rn(*tokens, kin),
+            (0, k - kin)).to(torch.bfloat16)
+    w = pad(rn(n, kin) * scale / kin ** 0.5, (0, k - kin)).to(torch.bfloat16)
+    b = (rn(n) * 0.1).to(torch.bfloat16)
+    res = (rn(*tokens, n) * 2).to(torch.bfloat16) if epilogue == "residual" else None
+    return x, w, b, epilogue, res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tokens", [(1, 544, 960), (2, 24, 40), (64,)])
+@pytest.mark.parametrize("site", ["proj", "fc1", "fc2"])
+def test_token_linear_matches_plain_on_card(cuda_device, site, tokens):
+    """token_linear at the SwinIR cell's canvas (544 x 960 tokens) and at
+    smaller ones (fewer 64-token tiles than SMs, one tile), for proj and
+    fc2 with the residual and fc1 with GELU: one launch a call, >= 99.9% of
+    values equal to the plain version (``token_linear_reference``: cuBLAS's
+    addmm, then ATen's add or GELU), and every value within one bf16 ulp of
+    the linear's output plus one of the result (the GEMM's fp32 sums differ
+    in order only, so a rounding of y may flip, and the residual's sum or
+    GELU carries that ulp)."""
+    from innfer_tpu_torch.ops import token_gemm as TGK
+
+    x, w, b, epilogue, res = _token_case(cuda_device, site, tokens, sum(tokens) + len(site))
+    before = TGK.token_linear.launches
+    out = TGK.token_linear(x, w, b, epilogue=epilogue, residual=res)
+    plain = TGK.token_linear_reference(x, w, b, epilogue=epilogue, residual=res)
+    y = F.linear(x, w, b)
+    torch.cuda.synchronize()
+    assert TGK.token_linear.launches - before == 1
+    assert out.shape == plain.shape == (*tokens, w.shape[0]) and out.dtype == torch.bfloat16
+    ref = plain.float()
+    tol = 2 ** -7 * (ref.abs() + y.float().abs()) + 1e-3 * max(1.0, ref.abs().max().item())
+    assert ((out.float() - ref).abs() <= tol).all().item()
+    assert (out == plain).float().mean().item() >= 0.999
+
+
+@pytest.mark.gpu
+def test_swinir_m_frame_on_the_kernels_matches_plain_path(cuda_device, tmp_path):
+    """A seeded SwinIR-M x4 (published widths and depth, the benchmark's
+    weights) on a 540 x 960 frame through InferenceSession in bf16: hybrid
+    on the 544 x 960 canvas, 108 token_linear launches a frame (proj, fc1
+    and fc2 of 36 layers), and >= 40 dB against ``ops.plain_path`` (the bar
+    of ``chip_smoke.py``'s [swinir])."""
+    import json
+    import os.path as osp
+
+    from innbench.reference import swinir as BR
+    from innfer_tpu_torch.ops import token_gemm as TGK
+    from innfer_tpu_torch.pipeline import InferenceSession, select_presets
+
+    root = osp.dirname(osp.dirname(osp.abspath(__file__)))
+    with open(osp.join(root, "innbench", "configs", "swinir_m_x4.json")) as f:
+        model = json.load(f)["model"]
+    ckpt = str(tmp_path / "4x_swinir_m_x4.pth")
+    state = BR.make_state(model, 23, cuda_device)
+    torch.save({"params_ema": {k: v.cpu() for k, v in state.items()}}, ckpt)
+    del state
+    sess = InferenceSession(ckpt, arch="infer", presets=select_presets("infer", ckpt),
+                            compute_dtype=torch.bfloat16, tile=256, overlap=16,
+                            tile_mode="auto", tile_batch=8)
+    rng = np.random.default_rng(23)
+    yy, xx = np.mgrid[0:540, 0:960].astype(np.float32)
+    smooth = 128 + 70 * np.sin(xx / 23) * np.cos(yy / 31)
+    frame = np.clip(smooth[..., None] + rng.normal(0, 10, (540, 960, 3)), 0, 255).astype(np.uint8)
+    with torch.no_grad():
+        before = TGK.token_linear.launches
+        out = sess.run_image(frame)
+        torch.cuda.synchronize()
+        launches = TGK.token_linear.launches - before
+        with plain_path():
+            plain = sess.run_image(frame)
+    runner = sess.stages[0].runner
+    plan = runner.plan_for(540, 960, True)
+    assert runner.last_mode == "hybrid" and (plan.pad_h, plan.pad_w) == (544, 960)
+    assert launches == 108
+    assert out.shape == plain.shape == (2160, 3840, 3) and out.std() > 1.0
+    mse = np.mean((out.astype(np.float64) - plain) ** 2)
+    assert 10 * np.log10(255.0 ** 2 / max(mse, 1e-12)) >= 40

@@ -1,10 +1,11 @@
 """SwinIR on the CPU at tiny widths against the published forward
 (``tests/swinir_reference.py``): the port's model whole and in the runner's
 hybrid mode, the benchmark's copy of the reference, the window attention's
-plain version and an emulation of its kernel's index arithmetic, faults
-that each comparison must catch, the loader (detection, the ``params_ema``
-wrapper, every hyperparameter, the refused variants), the kernels' gates,
-the counters and the hybrid canvas.  The kernels themselves are held on the
+plain version and an emulation of its kernel's index arithmetic, the token
+GEMM's plain version against the composition it replaces, faults that each
+comparison must catch, the loader (detection, the ``params_ema`` wrapper,
+every hyperparameter, the refused variants), the kernels' gates,
+``ops.plain_path``, the counters and the hybrid canvas.  The kernels themselves are held on the
 card by ``tests/test_torch_gpu.py``.
 
 Tolerances: fp32 on both sides, true fp32 (no TF32), the same operations
@@ -30,6 +31,7 @@ from innfer_tpu_torch.nn import functional as F
 from innfer_tpu_torch.nn.functional import true_fp32
 from innfer_tpu_torch.ops import layer_norm as LN
 from innfer_tpu_torch.ops import plain_path
+from innfer_tpu_torch.ops import token_gemm as TG
 from innfer_tpu_torch.ops import window_attn as WA
 from innfer_tpu_torch.tiling.engine import TiledRunner
 
@@ -324,6 +326,147 @@ def test_counters_and_the_gates_on_the_cpu(monkeypatch):
     assert c0["window_attns"] == c1["window_attns"] == 4
     assert c0.get("window_attns_fused", 0) == 0 and c1["window_attns_fused"] == 4
     assert torch.equal(out0, out1)
+
+
+_SITES = {  # a Swin layer's linear: (K, N, epilogue) at embed 24 (tiny) and 180 (SwinIR-M)
+    "proj": lambda c: (WA.padded(c), c, "residual"),
+    "fc1": lambda c: (WA.padded(c), 2 * c, "gelu"),
+    "fc2": lambda c: (2 * c, c, "residual"),
+}
+
+
+def _site_case(site, c, tokens=(2, 8, 8), dtype=torch.bfloat16, seed=0):
+    """Tokens, the weight as ``swin_layer`` packs it (input columns
+    zero-padded to the tokens' width), the bias and the residual of one of
+    a layer's linears at embed ``c``."""
+    k, n, epilogue = _SITES[site](c)
+    g = torch.Generator().manual_seed(seed)
+    kin = c if site != "fc2" else k
+    x = TF.pad(torch.randn(*tokens, kin, generator=g), (0, k - kin)).to(dtype)
+    w = TF.pad(torch.randn(n, kin, generator=g) / kin ** 0.5, (0, k - kin)).to(dtype)
+    b = (torch.randn(n, generator=g) * 0.1).to(dtype)
+    res = (torch.randn(*tokens, n, generator=g) * 2).to(dtype) if epilogue == "residual" else None
+    return x, w, b, epilogue, res
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("site", sorted(_SITES))
+def test_token_linear_reference_is_the_composition_it_replaces(site, dtype):
+    """``token_linear_reference`` is, bit for bit, what ``swin_layer`` ran
+    before the token GEMM: ``nn/functional.linear``, then ``x + y`` or
+    ``TF.gelu(y)``; the wrapper takes it for a CPU tensor."""
+    x, w, b, epilogue, res = _site_case(site, 24, dtype=dtype, seed=len(site))
+    y = F.linear(x, w, b)
+    want = res + y if epilogue == "residual" else TF.gelu(y)
+    got = TG.token_linear_reference(x, w, b, epilogue=epilogue, residual=res)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(TG.token_linear(x, w, b, epilogue=epilogue, residual=res), want)
+
+
+_TG_GATE = [  # (site, embed, tokens, change, takes)
+    ("proj", 180, (1, 544, 960), None, True),
+    ("fc1", 180, (1, 544, 960), None, True),
+    ("fc2", 180, (2, 8, 16), None, True),
+    ("proj", 180, (64,), None, True),
+    ("fc1", 180, (2, 8, 8), "fp32", False),         # fp32: the plain version
+    ("fc2", 180, (2, 8, 8), "fp16", False),         # not bf16
+    ("proj", 180, (2, 8, 8), "bias fp32", False),   # the bias not in x's dtype
+    ("proj", 180, (3, 7, 8), None, False),          # 168 tokens: not whole tiles of 64
+    ("fc1", 24, (2, 8, 8), None, False),            # widths the kernel was not built for
+    ("proj", 180, (2, 8, 8), "k 180", False),       # K % 8 != 0: 360-byte rows
+    ("fc2", 180, (2, 8, 8), "no residual", False),
+    ("fc1", 180, (2, 8, 8), "residual", False),     # gelu takes none
+    ("proj", 180, (2, 8, 8), "residual shape", False),
+    ("fc1", 180, (2, 8, 8), "sharded", False),
+]
+
+
+@pytest.mark.parametrize("case", _TG_GATE)
+def test_token_gemm_gate(case):
+    """The gate answers from dtypes and shapes: bf16 tokens, weight and
+    bias, K % 8 == 0, whole 64-token tiles, a residual for the residual
+    epilogue and none for GELU, the widths the kernel was built for, an
+    unsharded weight; on a CUDA tensor only, and never inside
+    ``ops.plain_path``.  Where it refuses, the wrapper raises on the card
+    and the CPU takes the plain version."""
+    site, c, tokens, change, ok = case
+    k, n, epilogue = _SITES[site](c)
+    # tokens and residual as views of one row: the gate reads shapes and dtypes only
+    x = torch.zeros(k, dtype=torch.bfloat16).expand(*tokens, k)
+    w, b = torch.zeros(n, k, dtype=torch.bfloat16), torch.zeros(n, dtype=torch.bfloat16)
+    res = (torch.zeros(n, dtype=torch.bfloat16).expand(*tokens, n) if epilogue == "residual"
+           else None)
+    if change in ("fp32", "fp16"):
+        dt = torch.float32 if change == "fp32" else torch.float16
+        x, w, b = x.to(dt), w.to(dt), b.to(dt)
+        res = None if res is None else res.to(dt)
+    elif change == "bias fp32":
+        b = b.float()
+    elif change == "k 180":
+        x, w = x[..., :180], w[:, :180].contiguous()
+    elif change == "no residual":
+        res = None
+    elif change == "residual":
+        res = torch.zeros(n, dtype=torch.bfloat16).expand(*tokens, n)
+    elif change == "residual shape":
+        res = res[..., :-8]
+    elif change == "sharded":
+        w.tp_shards = (w,)
+    kw = dict(epilogue=epilogue, residual=res)
+    assert TG.takes(x, w, b, **kw) is ok
+    assert TG.fusable(x, w, b, **kw) is False                       # a CPU tensor
+    assert TG.fusable(x.as_subclass(_CudaLooking), w, b, **kw) is ok
+    with plain_path():
+        assert not TG.fusable(x.as_subclass(_CudaLooking), w, b, **kw)
+
+
+@pytest.mark.parametrize("embed,forced,fused", [(24, False, 0), (24, True, 0), (180, False, 0),
+                                                (180, True, 3)])
+def test_swin_linears_counted_and_gated_on_the_cpu(monkeypatch, embed, forced, fused):
+    """Every Swin layer counts three linears with an epilogue (``proj``,
+    ``fc1``, ``fc2``); none runs on the kernel on the CPU.  With the token
+    GEMM's gate forced open (bf16), the three run through ``token_linear``
+    (its plain version on the CPU) wherever the widths are the kernel's
+    (SwinIR-M's embed 180, not 24), and the output is the same bits."""
+    ref = _reference(embed_dim=embed, depths=[2], num_heads=[6 if embed == 180 else 2])
+    model, _ = _port(ref)
+    params = convert_state(model, ref.state_dict(), param_dtype=torch.bfloat16, device="cpu")
+    x = _image(8, 16).permute(0, 2, 3, 1).to(torch.bfloat16)
+    out0, c0 = _counted(lambda: model.apply(params, x))
+    if forced:
+        monkeypatch.setattr(TG, "fusable", TG.takes)
+    launches = TG.token_linear.launches
+    out1, c1 = _counted(lambda: model.apply(params, x))
+    assert c0["swin_linears"] == c1["swin_linears"] == 3 * 2
+    assert c0.get("swin_linears_fused", 0) == 0
+    assert c1.get("swin_linears_fused", 0) == fused * 2
+    assert TG.token_linear.launches == launches           # the CPU launches nothing
+    assert torch.equal(out0, out1)
+
+
+_GATED = ("rdb", "resnet_block", "tail_conv", "dilated_block", "instance_norm", "window_attn",
+          "layer_norm", "token_gemm")
+
+
+@pytest.mark.parametrize("name", _GATED)
+def test_plain_path_closes_all_eight_gates(name):
+    """``ops.plain_path`` closes every kernel's gate, the token GEMM's
+    among them: each of the eight ``fusable`` answers False inside and is
+    itself again after; the eight are every ops module with a gate."""
+    import importlib
+    import pkgutil
+
+    import innfer_tpu_torch.ops as ops
+
+    gated = {m.name for m in pkgutil.iter_modules(ops.__path__)
+             if hasattr(importlib.import_module(f"innfer_tpu_torch.ops.{m.name}"), "fusable")}
+    assert gated == set(_GATED)
+    mod = importlib.import_module(f"innfer_tpu_torch.ops.{name}")
+    gate = mod.fusable
+    with plain_path():
+        assert mod.fusable is not gate
+        assert mod.fusable(torch.zeros(1), epilogue="gelu") is False
+    assert mod.fusable is gate
 
 
 def _save(tmp_path, state, wrap, name="swinir.pth"):
