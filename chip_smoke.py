@@ -143,7 +143,18 @@ the final result line):
               InferenceSession with arch infer on a 540x960 frame: hybrid
               on 544x960, 36 window_attn, 74 fused_layer_norm, 108
               token_linear and 4 tail conv launches a frame, >= 40 dB
-              against ops.plain_path;
+              against ops.plain_path; [hat_attn]: hat_window_attn (shifts 0
+              and 8) and overlap_attn (ops/hat_attn.py) at the HAT cell's
+              canvas, 6 heads of 30: >= 99.8% equal to the plain versions,
+              all within two bf16 ulps, >= 99.7% equal to the float64
+              versions; timed beside the byte bound, the plain versions and
+              scaled_dot_product_attention on windows cut beforehand (a
+              yardstick); and [hat]: Real-HAT-GAN x4 at its published
+              widths (the benchmark's seeded weights) through
+              InferenceSession with arch infer on a 540x960 frame: hybrid
+              on 544x960, 36 hat_window_attn, 6 overlap_attn, 86
+              fused_layer_norm, 126 token_linear and 3 tail conv launches a
+              frame, >= 40 dB against ops.plain_path;
   9. zoo      seeded synthetic SRResNet 4x (nf=64, nb=16, pixelshuffle,
               relu, CNA), PAN 4x (nf=40, unf=24, nb=16, self-attention)
               and PPON 4x (nf=64, nb=24) state dicts, the reference
@@ -347,10 +358,10 @@ CG_BLOCKS, CG_NGF = 9, 64         # CycleGAN resnet_9blocks at its published wid
 CG_NORMS = 5                      # its instance norms outside the blocks, a forward
 ZOO_BF16_DB, ZOO_FP32_DB = 30.0, 80.0   # bf16 vs fp32 session (u8); fp32 card vs CPU
 LIBS = ("rdb", "resnet_block", "tail_conv", "dilated_block", "instance_norm", "window_attn",
-        "layer_norm", "token_gemm")
-# no tensor-core conv: no HGMMA or UTMALDG to count (window_attn's products
-# run on mma.sync)
-NO_CONV_LIBS = ("instance_norm", "window_attn", "layer_norm")
+        "layer_norm", "token_gemm", "hat_attn")
+# no tensor-core conv: no HGMMA or UTMALDG to count (window_attn's and
+# hat_attn's products run on mma.sync)
+NO_CONV_LIBS = ("instance_norm", "window_attn", "layer_norm", "hat_attn")
 # Spill bytes a TMA conv instantiation may have: none, but for tail_conv's
 # HR conv (N=256 a phase-major tile of 1 row), whose 16 B were there when
 # it was first measured on the H100; more fails the build phase.
@@ -367,6 +378,11 @@ SWIN_FRAME = (540, 960)
 # 184 wide where the LayerNorm or the attention pads 180 channels
 TOKEN_SITES = {"proj": (180, 180, "residual"), "fc1": (180, 360, "gelu"),
                "fc2": (360, 180, "residual")}
+# the HAT cell's canvas is SwinIR's (544 x 960, 6 heads of 30); its
+# attentions: the HAB's window attention (16 x 16, shifted by 0 and 8) and
+# the OCA (16 x 16 queries against 24 x 24 keys)
+HAT_SITES = {"sa0": dict(window=16, shift=0), "sa8": dict(window=16, shift=8),
+             "oca": dict(window=16, kwin=24)}
 
 
 def fail(msg: str) -> None:
@@ -636,6 +652,7 @@ def token_gemm_lines(lib, kernels: dict) -> None:
 
 def kernel_counters():
     from innfer_tpu_torch.ops.dilated_block import fused_dilated_block
+    from innfer_tpu_torch.ops.hat_attn import hat_window_attn, overlap_attn
     from innfer_tpu_torch.ops.instance_norm import fused_instance_norm
     from innfer_tpu_torch.ops.layer_norm import fused_layer_norm
     from innfer_tpu_torch.ops.window_attn import window_attn
@@ -647,7 +664,7 @@ def kernel_counters():
     return {f.__name__: f for f in (fused_rdb, fused_rdb_padded, fused_rrdb_trunk,
                                     fused_resnet_block, tail_conv, fused_dilated_block,
                                     fused_instance_norm, window_attn, fused_layer_norm,
-                                    token_linear)}
+                                    token_linear, hat_window_attn, overlap_attn)}
 
 
 def reset_counts() -> None:
@@ -1421,7 +1438,8 @@ def phase_chain(dev, work, main):
     want = {"fused_rdb": 0, "fused_rdb_padded": NB * 3 * n, "fused_rrdb_trunk": n,
             "fused_resnet_block": 0, "tail_conv": 4 * main["tail_groups"],
             "fused_dilated_block": 0, "fused_instance_norm": 0, "window_attn": 0,
-            "fused_layer_norm": 0, "token_linear": 0}
+            "fused_layer_norm": 0, "token_linear": 0,
+            "hat_window_attn": 0, "overlap_attn": 0}
     if counts != want:
         fail(f"INNFER_RDB_CHAIN=1 session launches {counts}; expected {want}")
     dbs = []
@@ -1853,6 +1871,152 @@ def phase_swinir(dev, work):
     return counts
 
 
+def phase_hat_attn(dev, kernels=None) -> dict:
+    """Rows 11 and 12 of the kernel table: hat_window_attn and overlap_attn
+    (ops/hat_attn.py) at the HAT cell's canvas (1, 544, 960), 6 heads of 30,
+    the HAB's at shifts 0 and 8: >= 99.8% equal to the plain version, every
+    value within two bf16 ulps of it (P is rounded to bf16 before P v: a
+    flipped P moves an output by up to 2^-9 |v|), >= 99.7% equal to the
+    plain version in float64 (the tensor cores' fp32 sums and the SFU's
+    exp2 each flip a rounding now and then); then timed with CUDA events
+    beside the bound (q, k, v read once and the output written once,
+    unpadded: 1,440 B a token), the plain version, and PyTorch's
+    scaled_dot_product_attention on windows partitioned beforehand with
+    the gathered bias as its mask (a yardstick: the port never calls it).
+    ``kernels``: the libraries' ptxas reports.  Returns a row per site."""
+    import torch
+    import torch.nn.functional as TF
+
+    from innfer_tpu_torch.ops import hat_attn as HA
+    from innfer_tpu_torch.ops import window_attn as WA
+
+    b, hp, wp = SWIN_CANVAS
+    heads, hd = SWIN_HEADS, SWIN_HD
+    c = heads * hd
+    g = torch.Generator().manual_seed(84)
+    wq = torch.randn(3 * c, c, generator=g) / c ** 0.5
+    wpk, bpk = WA.pack_qkv(wq, torch.randn(3 * c, generator=g) * 0.1, heads, WA.padded(c))
+    x = TF.pad(torch.randn(b, hp, wp, c, generator=g) * 1.5, (0, WA.padded(c) - c)).to(dev)
+    qkv = (x @ wpk.to(dev).t() + bpk.to(dev)).to(torch.bfloat16)
+    del x
+    reg = {f: r for f, r in (kernels or {}).get("hat_attn", {}).items()}
+    n = b * hp * wp
+    rows = {}
+    for site, kw in HAT_SITES.items():
+        oca = "kwin" in kw
+        fn, ref = ((HA.overlap_attn, HA.overlap_attn_reference) if oca else
+                   (HA.hat_window_attn, HA.hat_window_attn_reference))
+        rows_t = (16 + 24 - 1) ** 2 if oca else 31 ** 2
+        table = torch.randn(rows_t, heads, generator=g).to(dev)
+        kw = dict(heads=heads, head_dim=hd, **kw)
+        before = fn.launches
+        out = fn(qkv, table, **kw)
+        plain = ref(qkv, table, **kw)
+        exact = ref(qkv, table, acc=torch.float64, **kw)
+        torch.cuda.synchronize()
+        if fn.launches != before + 1:
+            fail(f"{fn.__name__}: the wrapper did not launch the kernel")
+        err = (out.float() - plain.float()).abs().max().item()
+        equal, e_out, e_plain = ((u == v).float().mean().item()
+                                 for u, v in ((out, plain), (out, exact), (plain, exact)))
+        del exact
+        ulp = 2 ** -7 * plain.float().abs() + 1e-3 * max(1.0, plain.float().abs().max().item())
+        two_ulps = bool(((out.float() - plain.float()).abs() <= 2 * ulp).all())
+        pad_zero = bool((out[..., c:] == 0).all())
+        if not two_ulps or not pad_zero or equal < 0.998 or e_out < 0.997:
+            fail(f"{fn.__name__} {site}: max_abs {err:.3g}, {100 * equal:.4f}% equal to the "
+                 f"plain version, within two ulps {two_ulps}, padding zero {pad_zero}; "
+                 f"{100 * e_out:.4f}% equal to the float64 version (the plain version "
+                 f"{100 * e_plain:.4f}%)")
+        ms = cuda_ms(lambda: fn(qkv, table, **kw), reps=20)
+        plain_ms = cuda_ms(lambda: ref(qkv, table, **kw), reps=2)
+        keys = (24 if oca else 16) ** 2
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               **bound(4.0 * keys * c * n * 540 / 544, 8 * c * n * 540 / 544)}
+        row.update(rates(4.0 * keys * c * n * 540 / 544, ms, row["bound_ms"]))
+        # the yardstick: SDPA on windows (and unfolded key windows) cut beforehand
+        q, k, v = HA._heads(qkv, heads, hd)
+        q = HA._partition(q, 16)
+        if oca:
+            k, v = (TF.unfold(t.flatten(3).permute(0, 3, 1, 2), 24, padding=4, stride=16)
+                    .reshape(b, heads, hd, 576, -1).permute(0, 4, 1, 3, 2)
+                    .reshape(-1, heads, 576, hd) for t in (k, v))
+            idx = HA.oca_index(16, 24, dev)
+        else:
+            k, v = HA._partition(k, 16), HA._partition(v, 16)
+            idx = HA.sa_index(16, dev)
+        mask = HA._bias(table, idx, torch.float32).to(torch.bfloat16)[None]
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        row["library_ms"] = cuda_ms(
+            lambda: TF.scaled_dot_product_attention(q, k, v, attn_mask=mask), reps=5)
+        del q, k, v, mask
+        r = next((r for f, r in reg.items() if ("hatattn_oca" if oca else "hatattn_sa") in f),
+                 None)
+        print(f"[hat_attn] {fn.__name__} {site} {SWIN_CANVAS}: max_abs {err:.3g}, "
+              f"{100 * equal:.4f}% equal to the plain version (all within two bf16 ulps); equal "
+              f"to the float64 version {100 * e_out:.4f}% (the plain version "
+              f"{100 * e_plain:.4f}%); kernel {ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}: {8 * c * n * 540 / 544 / 1e6:.1f} MB unpadded), "
+              f"{100 * row['bound_share']:.1f}% of the bound; plain {plain_ms:.3f} ms; "
+              f"scaled_dot_product_attention on windows cut beforehand {row['library_ms']:.4f} "
+              f"ms" + (f"; {r['regs']} registers, {r['spill']} B spilled" if r else ""),
+              flush=True)
+        rows[site] = row
+        del out, plain, table
+    return rows
+
+
+def phase_hat(dev, work):
+    """Real-HAT-GAN x4 at its published widths (the benchmark's seeded
+    weights, ``innbench/reference/hat.py``) through InferenceSession with
+    ``arch: infer`` in bf16, auto -> hybrid on the 544 x 960 canvas, on a
+    seeded 540 x 960 frame: 36 hat_window_attn, 6 overlap_attn, 86
+    fused_layer_norm, 126 token_linear and 3 tail conv launches a frame, the
+    frame's ms, and >= 40 dB against ``ops.plain_path``."""
+    import json as _json
+
+    import torch
+
+    from innbench.reference import hat as HR
+    from innfer_tpu_torch.ops import plain_path
+    from innfer_tpu_torch.pipeline import InferenceSession, select_presets
+
+    with open(os.path.join(HERE, "innbench", "configs", "hat_x4.json")) as f:
+        model = _json.load(f)["model"]
+    ckpt = os.path.join(work, "4x_hat_x4.pth")
+    state = HR.make_state(model, 24, dev)
+    torch.save({"params_ema": {k: v.cpu() for k, v in state.items()}}, ckpt)
+    del state
+    sess = InferenceSession(ckpt, arch="infer", presets=select_presets("infer", ckpt),
+                            compute_dtype=torch.bfloat16, tile=256, overlap=16,
+                            tile_mode="auto", tile_batch=8)
+    frame = synth_image(*SWIN_FRAME, seed=25)
+    sess.run_image(frame)
+    torch.cuda.synchronize()
+    reset_counts()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = sess.run_image(frame)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    counts = {k: v / reps for k, v in read_counts().items() if v}
+    with plain_path():
+        plain = sess.run_image(frame)
+    runner = sess.stages[0].runner
+    plan = runner.plan_for(*SWIN_FRAME, True)
+    db = psnr(out, plain, 255.0)
+    print(f"[hat] Real-HAT-GAN x4 {SWIN_FRAME[0]}x{SWIN_FRAME[1]} bf16: {runner.last_mode} on "
+          f"{plan.pad_h}x{plan.pad_w}, {plan.n_tiles} tail tiles; {ms:.2f} ms a frame; launches "
+          f"a frame {counts}; {db:.2f} dB against ops.plain_path", flush=True)
+    want = {"hat_window_attn": 36, "overlap_attn": 6, "fused_layer_norm": 86, "tail_conv": 3,
+            "token_linear": 126}
+    if runner.last_mode != "hybrid" or (plan.pad_h, plan.pad_w) != (544, 960) or \
+            counts != want or db < MIN_PSNR_DB or out.shape != (2160, 3840, 3):
+        fail(f"[hat] want hybrid on 544x960, launches {want} and >= {MIN_PSNR_DB} dB")
+    return counts
+
+
 def synth_cyclegan_state(torch, seed, n_blocks=CG_BLOCKS, ngf=CG_NGF):
     """A seeded random-init CycleGAN resnet generator state dict in the
     reference's key layout (a copy of tools/synth_params.py's
@@ -1967,7 +2131,7 @@ def phase_cyclegan(dev, work):
     want = {"fused_rdb": 0, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0, "tail_conv": 0,
             "fused_dilated_block": 0, "fused_resnet_block": CG_BLOCKS * n_groups,
             "fused_instance_norm": CG_NORMS * n_groups, "window_attn": 0, "fused_layer_norm": 0,
-            "token_linear": 0}
+            "token_linear": 0, "hat_window_attn": 0, "overlap_attn": 0}
     if runner.last_mode != "auto":
         fail(f"tile_mode auto ran {runner.last_mode!r} for the CycleGAN")
     if counts != want:
@@ -2779,7 +2943,7 @@ def phase_batch(dev, work):
     whole_p.chop = False
     want = {"fused_rdb": 0, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0, "tail_conv": 0,
             "fused_dilated_block": 0, "window_attn": 0, "fused_layer_norm": 0,
-            "token_linear": 0}
+            "token_linear": 0, "hat_window_attn": 0, "overlap_attn": 0}
     cg = {}
     for dt in (bf16, fp32):
         def cg_launches(blocks, dt=dt):  # the norms take their kernel in bf16 alone
@@ -3458,7 +3622,8 @@ def phase_parallel(dev, work, main, halo_shape=(1, 1088, 1920, NF)):
     if dp_counts != {"fused_rdb": 69 * slices, "fused_rdb_padded": 0, "fused_rrdb_trunk": 0,
                      "fused_resnet_block": 0, "tail_conv": 4 * slices,
                      "fused_dilated_block": 0, "fused_instance_norm": 0, "window_attn": 0,
-                     "fused_layer_norm": 0, "token_linear": 0}:
+                     "fused_layer_norm": 0, "token_linear": 0, "hat_window_attn": 0,
+                     "overlap_attn": 0}:
         fail(f"dp tiles launched {dp_counts}, expected 69 x {slices} fused_rdb and 4 x "
              f"{slices} tail_conv (a forward's tail per slice)")
     if share < 0.999 or db < MIN_PSNR_DB or err32 > 1e-5 or err_tb > 5e-4 or len(dp_written) != 1:
@@ -3723,6 +3888,11 @@ def main() -> int:
             wa_row = phase_window_attn(dev, reports)
             tg_rows = phase_token_gemm(dev, reports)
             swin = phase_swinir(dev, work)
+            hat_rows = phase_hat_attn(dev, reports)
+            hat = phase_hat(dev, work)
+            for site, row in hat_rows.items():
+                row["launches"] = (hat["overlap_attn"] if site == "oca" else
+                                   hat["hat_window_attn"] / 2)
             wa_row["launches"] = swin["window_attn"]
             for row in tg_rows.values():
                 row["launches"] = swin["token_linear"] / len(tg_rows)
@@ -3769,7 +3939,11 @@ def main() -> int:
         {"name": f"token_linear.{site}", "route": "cuda",
          "source": "innfer_tpu_torch/ops/csrc/token_gemm.cu",
          "replaces": "none: the JAX package has no SwinIR", **row}
-        for site, row in tg_rows.items()]
+        for site, row in tg_rows.items()] + [
+        {"name": f"{'overlap_attn' if site == 'oca' else 'hat_window_attn'}.{site}",
+         "route": "cuda", "source": "innfer_tpu_torch/ops/csrc/hat_attn.cu",
+         "replaces": "none: the JAX package has no HAT", **row}
+        for site, row in hat_rows.items()]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops", "bound_share")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))

@@ -18,6 +18,8 @@ from innfer_tpu_torch.config.defaults import get_network_config
 StateDict = Dict[str, Any]
 
 SWINIR_KEY = "layers.0.residual_group.blocks.0.attn.relative_position_bias_table"
+# the overlapping cross-attention's table: HAT's alone (it shares SWINIR_KEY)
+HAT_KEY = "layers.0.residual_group.overlap_attn.relative_position_bias_table"
 
 
 def load_checkpoint(path: str) -> StateDict:
@@ -48,6 +50,9 @@ def fingerprint_arch(state: StateDict) -> Tuple[str, StateDict]:
     are converted to the flattened esrgan layout on the way."""
     if "SCPA_trunk.0.conv1_a.weight" in state:
         return "pan", state
+    if HAT_KEY in state:
+        # ahead of SwinIR's key, which HAT's window attention shares
+        return "hat", state
     if SWINIR_KEY in state:
         # ahead of conv_first, which SwinIR shares with the mESRGAN layout
         return "swinir", state
@@ -76,7 +81,7 @@ def infer_params(arch: str, state: StateDict, scale: Optional[int] = None,
     wbcunet: scale 1, pt mode, nf from ``conv``.
     ppon and pan: nb, nf, out_nc and scale from key names and shapes (the
     reference falls back to library defaults for these, run.py:157-163).
-    swinir: :func:`swinir_params`.
+    swinir: :func:`swinir_params`; hat: :func:`hat_params`.
     """
     if arch in ("esrgan", "srgan"):
         scale2x = 0
@@ -126,6 +131,8 @@ def infer_params(arch: str, state: StateDict, scale: Optional[int] = None,
                "out_nc": out_nc, "nf": nf, "nb": nb}
     elif arch == "swinir":
         net = swinir_params(state)   # its upscale from the tail's keys
+    elif arch == "hat":
+        net = hat_params(state)
     elif arch == "pan":
         nb = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("SCPA_trunk."))
         nf = int(state["conv_first.weight"].shape[0])
@@ -178,6 +185,44 @@ def swinir_params(state: StateDict) -> Dict[str, Any]:
             "embed_dim": embed, "depths": depths, "num_heads": heads, "window_size": window,
             "mlp_ratio": hidden / embed, "upsampler": upsampler, "resi_connection": resi,
             "upscale": upscale}
+
+
+def hat_params(state: StateDict) -> Dict[str, Any]:
+    """HAT's hyperparameters from its keys and shapes (``hat_arch.py``):
+    embed_dim, in_chans, the groups' depths and heads and mlp_ratio as
+    SwinIR's (:func:`swinir_params`), the window from the HAB tables'
+    (2 w - 1)^2 rows, the overlap ratio from the OCA table's (w + ow - 1)^2
+    rows (ow = w + int(w overlap_ratio)), compress_ratio from the CAB's
+    first conv (embed / its outputs), squeeze_factor from the channel
+    attention's first 1x1 conv, the upsampler from the tail's keys
+    (``conv_before_upsample`` and ``upsample.*``: pixelshuffle, x3 where
+    ``upsample.0`` has 9 nf outputs, else 2 ** its convs; neither: none),
+    resi_connection from ``layers.0.conv`` (``1conv``; ``3conv``'s
+    ``layers.0.conv.0``; else ``identity``).  conv_scale is not in the
+    file: the published 0.01."""
+    net = swinir_params(state)
+    embed, window = net["embed_dim"], net["window_size"]
+    rows = int(state[HAT_KEY].shape[0])
+    owin = round(rows ** 0.5) - window + 1
+    blk = "layers.0.residual_group.blocks.0.conv_block.cab"
+    n_up = sum(1 for k in state if k.startswith("upsample.") and k.endswith(".weight"))
+    if "conv_before_upsample.0.weight" in state and n_up:
+        nf = int(state["conv_before_upsample.0.weight"].shape[0])
+        up = int(state["upsample.0.weight"].shape[0])
+        upsampler, upscale = "pixelshuffle", 3 if up == 9 * nf else 2 ** n_up
+    else:
+        upsampler, upscale = "", 1
+    if "layers.0.conv.weight" in state:
+        resi = "1conv"
+    elif "layers.0.conv.0.weight" in state:
+        resi = "3conv"
+    else:
+        resi = "identity"
+    net.update(type="hat", overlap_ratio=(owin - window) / window,
+               compress_ratio=embed // int(state[f"{blk}.0.weight"].shape[0]),
+               squeeze_factor=embed // int(state[f"{blk}.3.attention.1.weight"].shape[0]),
+               conv_scale=0.01, upsampler=upsampler, resi_connection=resi, upscale=upscale)
+    return net
 
 
 def detect_and_infer(state: StateDict, scale: Optional[int] = None

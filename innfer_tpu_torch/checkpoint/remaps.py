@@ -1,5 +1,6 @@
 """State-dict remap passes: SWA unwrap, the mESRGAN key-layout
-conversion, both ways, and SwinIR's tail onto the SR tail's positions.
+conversion, both ways, and SwinIR's and HAT's tails onto the SR tail's
+positions.
 
 The port's own copy of ``innfer_tpu/checkpoint/remaps.py`` (reference
 utils/utils.py:629-720).  Values pass through untouched, so the passes
@@ -9,6 +10,10 @@ from __future__ import annotations
 
 import re
 from typing import Any, Dict
+
+import torch
+
+from innfer_tpu_torch.ops import hat_attn as HA
 
 StateDict = Dict[str, Any]
 
@@ -117,4 +122,46 @@ def swinir_to_seq(state: StateDict) -> StateDict:
             continue
         stem, _, leaf = k.rpartition(".")
         out[f"{_SWINIR_TAIL[stem]}.{leaf}" if stem in _SWINIR_TAIL else k] = v
+    return out
+
+
+_HAT_UP = re.compile(r"^upsample\.(\d+)\.(weight|bias)$")
+HAT_INDEX_SA, HAT_INDEX_OCA = "relative_position_index_SA", "relative_position_index_OCA"
+
+
+def hat_to_seq(state: StateDict) -> StateDict:
+    """A HAT state dict (``hat_arch.py``'s keys) with its pixelshuffle
+    tail's convs at the SR tail's positions (``upsample.<2 i>`` at
+    ``tail.<3 i>``, ``conv_last`` after the last) and its index buffers
+    checked, then dropped: ``relative_position_index_SA`` and
+    ``relative_position_index_OCA`` must equal the indices the program
+    computes from the tables' sizes (``ops/hat_attn.py``), or this raises,
+    naming the buffer; any ``attn_mask`` is dropped too (the program makes
+    the mask for its canvas)."""
+    sa = state["layers.0.residual_group.blocks.0.attn.relative_position_bias_table"]
+    oca = state["layers.0.residual_group.overlap_attn.relative_position_bias_table"]
+    window = (round(sa.shape[0] ** 0.5) + 1) // 2
+    kwin = round(oca.shape[0] ** 0.5) - window + 1
+    want = {HAT_INDEX_SA: HA.sa_index(window), HAT_INDEX_OCA: HA.oca_index(window, kwin)}
+    for key, index in want.items():
+        if key in state:
+            got = torch.as_tensor(state[key])
+            if tuple(got.shape) != tuple(index.shape) or not torch.equal(got.long(), index):
+                raise ValueError(
+                    f"HAT: the checkpoint's {key} {tuple(got.shape)} differs from the index the "
+                    f"program computes {tuple(index.shape)} for window {window} and key window "
+                    f"{kwin}; the program reads the tables through its own index, so it refuses "
+                    "the file")
+    n_up = sum(1 for k in state if _HAT_UP.match(k) and k.endswith(".weight"))
+    out: StateDict = {}
+    for k, v in state.items():
+        if k in want or _SWINIR_BUFFERS.fullmatch(k):
+            continue
+        m = _HAT_UP.match(k)
+        if m:
+            out[f"tail.{3 * (int(m.group(1)) // 2)}.{m.group(2)}"] = v
+        elif k.startswith("conv_last."):
+            out[f"tail.{3 * n_up}.{k.split('.', 1)[1]}"] = v
+        else:
+            out[k] = v
     return out

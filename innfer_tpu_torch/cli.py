@@ -12,9 +12,9 @@
 ``-m`` takes one model or a chain joined with ``+`` or ``>``, run one
 stage after another (``--fused-chain``: one tile pass through every
 stage).  ``-a infer`` (the default) detects ESRGAN/ESRGAN+/mESRGAN,
-SRResNet/SRGAN, PAN, PPON, SwinIR (real-world x4) and WBC state dicts and
+SRResNet/SRGAN, PAN, PPON, SwinIR (real-world x4), HAT and WBC state dicts and
 TorchScript archives; ``-a`` also takes an architecture alias with library
-defaults (esrgan, esrgan-lite, mesrgan, srgan, srresnet, pan, ppon, swinir,
+defaults (esrgan, esrgan-lite, mesrgan, srgan, srresnet, pan, ppon, swinir, hat,
 resnet_6blocks, resnet_9blocks, unet_128, unet_256, p2p_128, p2p_256,
 wbcunet, wbcunet_tf, ...), and ``-a ts`` a TorchScript archive, which runs
 in fp32.  A model name holding "wbc" selects the WBC preset (modcrop,
@@ -69,7 +69,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Path to models (chain with + or >).")
     p.add_argument("-arch", "-a", type=str, default="infer",
                    help="Model architecture: infer (auto-detect), ts (TorchScript) "
-                   "or an alias such as esrgan, srgan, pan, ppon, swinir, resnet_9blocks, "
+                   "or an alias such as esrgan, srgan, pan, ppon, swinir, hat, resnet_9blocks, "
                    "unet_128, unet_256, p2p_256, wbcunet, wbcunet_tf.")
     p.add_argument("-input", "-i", type=str, default="./input", help="Path to read input images.")
     p.add_argument("-output", "-o", type=str, default="./output", help="Path to save output images.")

@@ -23,6 +23,8 @@ def _match_kind(kind: str) -> str:
         return "ppon"
     if "swinir" in kind:
         return "swinir"
+    if kind == "hat":
+        return "hat"
     if kind in ("pan_net", "pan"):
         return "pan_net"
     if "wbcunet" in kind:
@@ -116,6 +118,25 @@ def get_network_config(network: Union[str, Dict[str, Any]], scale: int) -> Dict[
             num_heads=list(pop("num_heads", [6] * 6)),
             mlp_ratio=pop("mlp_ratio", 2.0),
             upsampler=pop("upsampler", "nearest+conv"),
+            resi_connection=pop("resi_connection", "1conv"),
+        )
+    elif canon == "hat":
+        # the released real-world x4 GAN model (options/test/HAT_GAN_Real_SRx4.yml)
+        cfg.update(
+            upscale=pop("upscale", scale if scale > 1 else 4),
+            in_chans=pop("in_chans", 3),
+            img_size=pop("img_size", 64),
+            window_size=pop("window_size", 16),
+            compress_ratio=pop("compress_ratio", 3),
+            squeeze_factor=pop("squeeze_factor", 30),
+            conv_scale=pop("conv_scale", 0.01),
+            overlap_ratio=pop("overlap_ratio", 0.5),
+            img_range=pop("img_range", 1.0),
+            depths=list(pop("depths", [6] * 6)),
+            embed_dim=pop("embed_dim", 180),
+            num_heads=list(pop("num_heads", [6] * 6)),
+            mlp_ratio=pop("mlp_ratio", 2.0),
+            upsampler=pop("upsampler", "pixelshuffle"),
             resi_connection=pop("resi_connection", "1conv"),
         )
     elif canon == "pan_net":

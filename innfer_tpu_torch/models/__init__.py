@@ -2,8 +2,8 @@
 
 The port's registry over the reference's types (architectures/__init__.py:
 5-40): RRDBNet, mESRGAN, SRResNet, PPON, PAN, the pix2pix UNet, the
-CycleGAN ResNet and WBC, and SwinIR, which the reference's registry
-lacks.  evsrgan (RRDBNet with Conv3D) is built by ``rrdb._build_3d``, for
+CycleGAN ResNet and WBC, and SwinIR and HAT, which the reference's
+registry lacks.  evsrgan (RRDBNet with Conv3D) is built by ``rrdb._build_3d``, for
 the library only: ``InferenceSession`` refuses it.
 """
 from __future__ import annotations
@@ -39,6 +39,10 @@ def get_network(cfg: Dict[str, Any]) -> ModelDef:
         from innfer_tpu_torch.models import swinir
 
         return swinir.build(cfg)
+    if kind == "hat":
+        from innfer_tpu_torch.models import hat
+
+        return hat.build(cfg)
     if kind == "pan_net":
         from innfer_tpu_torch.models import pan
 

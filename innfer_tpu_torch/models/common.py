@@ -220,13 +220,16 @@ def phase_hr_conv(params: Params, p: torch.Tensor, key: str, r: int = 2,
 
 
 def apply_phase_tail(params: Params, h: torch.Tensor, *, up_key: str, up_mode: str,
-                     act_type, hr0: int, finalact, out_prefix: str = "model") -> torch.Tensor:
+                     act_type, hr0: int, finalact, out_prefix: str = "model",
+                     hr_conv: bool = True) -> torch.Tensor:
     """The SR tail -- last upsample block, act, HR conv, act, conv_last,
     optional finalact -- evaluated in phase space on the half-resolution
     grid, with one final 3-channel depth-to-space
     (``innfer_tpu/models/common.py:154-191``).  The same taps as the
     materialized tail, summed in another order; no HR-resolution
-    activation of nf channels is ever shuffled."""
+    activation of nf channels is ever shuffled.  Without ``hr_conv``
+    (HAT's pixelshuffle tail) conv_last, at ``hr0``, follows the last
+    upsample block."""
     r = 2
     p = _fused(params, h, up_key, act_type, mode=up_mode, layout="phase",
                pack=lambda w: TC.pack_plain(*_phase_major_block(params, up_key, up_mode, w)))
@@ -240,13 +243,15 @@ def apply_phase_tail(params: Params, h: torch.Tensor, *, up_key: str, up_mode: s
             w2 = derived(params, "phase_shuffle", up_key, lambda w: PH.cmajor_to_phase_major(w, r))
             p = F.conv2d(h, w2, PH.cmajor_bias_to_phase_major(b, r), padding=1)
         p = F.act(act_type, p)
-    p = phase_hr_conv(params, p, f"{out_prefix}.{hr0}", r, act=act_type)
-    p = phase_hr_conv(params, p, f"{out_prefix}.{hr0 + 2}", r, act=finalact)
+    if hr_conv:
+        p = phase_hr_conv(params, p, f"{out_prefix}.{hr0}", r, act=act_type)
+        hr0 += 2
+    p = phase_hr_conv(params, p, f"{out_prefix}.{hr0}", r, act=finalact)
     return PH.phase_shuffle_out(p, r)
 
 
 def sr_tail(params: Params, h: torch.Tensor, prefix: str, *, upscale: int, up_mode: str,
-            act_type, finalact, start: int = 2) -> torch.Tensor:
+            act_type, finalact, start: int = 2, hr_conv: bool = True) -> torch.Tensor:
     """The SR tail of the flattened-sequential skeleton, its modules at
     ``prefix.<i>`` from ``start`` on: the upsample blocks (LR-collapsed
     where :func:`upconv_collapse_ok` says), then either the last block and
@@ -255,7 +260,10 @@ def sr_tail(params: Params, h: torch.Tensor, prefix: str, *, upscale: int, up_mo
     SRResNet run it at ``model`` (start 2); PPON once per reconstruction
     branch (start 0, no finalact), each branch's phase predicate reading
     only its own last-block weight, so the three agree for every PPON
-    state dict.  The one seam of the three models' tails."""
+    state dict; SwinIR at ``tail`` (start 0).  HAT's pixelshuffle tail has
+    no HR conv (``hr_conv`` False): conv_last, at the HR conv's position,
+    follows the last upsample block, in phase space or at full resolution.
+    The one seam of the five models' tails."""
     _n_up, factor = n_upscale_blocks(upscale)
     up_convs, hr0 = upsample_indices(upscale, up_mode, start=start)
     # the act submodule's flat index inside each upsample block:
@@ -270,8 +278,12 @@ def sr_tail(params: Params, h: torch.Tensor, prefix: str, *, upscale: int, up_mo
     if phase:
         return apply_phase_tail(params, h, up_key=f"{prefix}.{up_convs[-1]}", up_mode=up_mode,
                                 act_type=act_type, hr0=hr0, finalact=finalact,
-                                out_prefix=prefix)
-    h = apply_hr_convs(params, h, prefix, hr0, act_type, act_key=f"{prefix}.{hr0 + 1}")
+                                out_prefix=prefix, hr_conv=hr_conv)
+    if hr_conv:
+        h = apply_hr_convs(params, h, prefix, hr0, act_type, act_key=f"{prefix}.{hr0 + 1}")
+    else:
+        count("tail_convs", 1)
+        h = conv3x3(params, h, f"{prefix}.{hr0}")
     if finalact:
         # the final act follows HR_conv1 in the flattened sequential
         # (RRDBNet_arch.py:45-48)

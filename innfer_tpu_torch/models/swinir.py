@@ -94,7 +94,7 @@ def _refuse(cfg: Dict[str, Any]) -> None:
         raise NotImplementedError("SwinIR: the nearest+conv upsampler is published for x4 only")
 
 
-def _ln(params, x: torch.Tensor, key: str, width: int) -> torch.Tensor:
+def ln(params, x: torch.Tensor, key: str, width: int) -> torch.Tensor:
     """LayerNorm ``key`` of the tokens x, into rows of ``width`` channels."""
     w, b = params[f"{key}.weight"], params[f"{key}.bias"]
     if LN.fusable(x, w, b):
@@ -102,7 +102,7 @@ def _ln(params, x: torch.Tensor, key: str, width: int) -> torch.Tensor:
     return LN.layer_norm_reference(x, w, b, out_width=width)
 
 
-def _packed(params, x: torch.Tensor, key: str, pack=None):
+def packed(params, x: torch.Tensor, key: str, pack=None):
     """The linear ``key``'s weight and bias in the layout ``pack(w, b)``
     gives (kept per ParamDict), the bias in x's dtype for the bf16 route."""
     w, b = params[f"{key}.weight"], params[f"{key}.bias"]
@@ -113,31 +113,48 @@ def _packed(params, x: torch.Tensor, key: str, pack=None):
     return w, b
 
 
-def _linear(params, x: torch.Tensor, key: str, pack=None) -> torch.Tensor:
-    """The linear ``key`` on x (:func:`_packed`'s weight and bias)."""
-    return F.linear(x, *_packed(params, x, key, pack))
+def linear(params, x: torch.Tensor, key: str, pack=None) -> torch.Tensor:
+    """The linear ``key`` on x (:func:`packed`'s weight and bias)."""
+    return F.linear(x, *packed(params, x, key, pack))
 
 
-def _token_linear(params, x: torch.Tensor, key: str, pack=None, *, epilogue: str,
-                  residual=None) -> torch.Tensor:
+def token_linear(params, x: torch.Tensor, key: str, pack=None, *, epilogue: str,
+                 residual=None) -> torch.Tensor:
     """The linear ``key`` on x with its epilogue, ``residual + linear`` or
     ``gelu(linear)``: on the token GEMM kernel where ``token_gemm.fusable``
     holds (counted as ``swin_linears_fused``), else its plain version."""
-    w, b = _packed(params, x, key, pack)
+    w, b = packed(params, x, key, pack)
     if TG.fusable(x, w, b, epilogue=epilogue, residual=residual):
         count("swin_linears_fused", 1)
         return TG.token_linear(x, w, b, epilogue=epilogue, residual=residual)
     return TG.token_linear_reference(x, w, b, epilogue=epilogue, residual=residual)
 
 
-def _pad_in(width: int):
+def pad_in(width: int):
     """A packing that zero-pads a weight's input columns to ``width``: the
     linear then reads the padded rows the LayerNorm or attention wrote."""
     return lambda w, b: (TF.pad(w, (0, width - w.shape[1])).contiguous(), b)
 
 
-def _conv(params, x: torch.Tensor, key: str) -> torch.Tensor:
+def conv(params, x: torch.Tensor, key: str) -> torch.Tensor:
     return F.conv2d(x, params[f"{key}.weight"], params.get(f"{key}.bias"), padding=1)
+
+
+def qkv_rows(params, y: torch.Tensor, key: str, heads: int) -> torch.Tensor:
+    """The linear ``key`` (a qkv projection) on LayerNorm rows ``y`` of
+    16-byte width, into the attention kernels' layout: each head's q, k and
+    v padded to 32 channels (``window_attn.pack_qkv``)."""
+    cp = y.shape[-1]
+    return linear(params, y, key, lambda w, b: WA.pack_qkv(w, b, heads, cp))
+
+
+def mlp_residual(params, x: torch.Tensor, prefix: str) -> torch.Tensor:
+    """``x + fc2(GELU(fc1(norm2(x))))``: the LayerNorm into 16-byte rows,
+    fc1 with GELU and fc2 with the residual add on the token GEMM."""
+    cp = WA.padded(x.shape[-1])
+    h = ln(params, x, f"{prefix}.norm2", cp)
+    h = token_linear(params, h, f"{prefix}.mlp.fc1", pad_in(cp), epilogue="gelu")
+    return token_linear(params, h, f"{prefix}.mlp.fc2", epilogue="residual", residual=x)
 
 
 def swin_layer(params, x: torch.Tensor, prefix: str, *, heads: int, window: int,
@@ -152,8 +169,7 @@ def swin_layer(params, x: torch.Tensor, prefix: str, *, heads: int, window: int,
     cp = WA.padded(c)
     count("window_attns", 1)
     count("swin_linears", 3)
-    qkv = _linear(params, _ln(params, x, f"{prefix}.norm1", cp), f"{prefix}.attn.qkv",
-                  lambda w, b: WA.pack_qkv(w, b, heads, cp))
+    qkv = qkv_rows(params, ln(params, x, f"{prefix}.norm1", cp), f"{prefix}.attn.qkv", heads)
     table = params[f"{prefix}.attn.relative_position_bias_table"]
     bias = cached(params, ("swin_bias", prefix, table.device),
                   lambda: WA.gather_bias(table, window))
@@ -164,11 +180,9 @@ def swin_layer(params, x: torch.Tensor, prefix: str, *, heads: int, window: int,
     else:
         a = WA.window_attn_reference(qkv, bias, **kw)
     del qkv
-    x = _token_linear(params, a, f"{prefix}.attn.proj", _pad_in(cp), epilogue="residual",
-                      residual=x)
-    h = _ln(params, x, f"{prefix}.norm2", cp)
-    h = _token_linear(params, h, f"{prefix}.mlp.fc1", _pad_in(cp), epilogue="gelu")
-    return _token_linear(params, h, f"{prefix}.mlp.fc2", epilogue="residual", residual=x)
+    x = token_linear(params, a, f"{prefix}.attn.proj", pad_in(cp), epilogue="residual",
+                     residual=x)
+    return mlp_residual(params, x, prefix)
 
 
 def build(cfg: Dict[str, Any]) -> ModelDef:
@@ -198,16 +212,16 @@ def build(cfg: Dict[str, Any]) -> ModelDef:
         if x.shape[1] % window or x.shape[2] % window:
             raise ValueError(f"SwinIR's trunk runs on a canvas of multiples of its window "
                              f"{window}; got {tuple(x.shape[1:3])}")
-        fea = _conv(params, shift_in(params, x), "conv_first")
-        t = _ln(params, fea, "patch_embed.norm", embed)
+        fea = conv(params, shift_in(params, x), "conv_first")
+        t = ln(params, fea, "patch_embed.norm", embed)
         for i, (depth, nh) in enumerate(zip(depths, heads)):
             res = t
             for j in range(depth):
                 t = swin_layer(params, t, f"layers.{i}.residual_group.blocks.{j}", heads=nh,
                                window=window, shift=0 if j % 2 == 0 else window // 2)
-            t = _conv(params, t, f"layers.{i}.conv") + res
-        t = _conv(params, _ln(params, t, "norm", embed), "conv_after_body") + fea
-        return F.leaky_relu(_conv(params, t, "conv_before_upsample.0"), TRUNK_SLOPE)
+            t = conv(params, t, f"layers.{i}.conv") + res
+        t = conv(params, ln(params, t, "norm", embed), "conv_after_body") + fea
+        return F.leaky_relu(conv(params, t, "conv_before_upsample.0"), TRUNK_SLOPE)
 
     def apply_tail(params, h: torch.Tensor) -> torch.Tensor:
         """ESRGAN's x4 tail on the 64-channel map, then the mean back."""

@@ -160,6 +160,10 @@ SIGNATURES = {
         "innfer_token_gemm": ([_vp] * 5 + [_ll, _i, _i, _i, _vp], _i),
         "innfer_token_gemm_smem_bytes": ([_i] * 3, _i),
     },
+    "hat_attn": {
+        "innfer_hat_window_attn": ([_vp] * 3 + [_i] * 7 + [_f, _vp], _i),
+        "innfer_overlap_attn": ([_vp] * 3 + [_i] * 6 + [_f, _vp], _i),
+    },
 }
 
 
@@ -219,6 +223,12 @@ def window_attn_library() -> ctypes.CDLL:
 def token_gemm_library() -> ctypes.CDLL:
     """SwinIR's token linears with their epilogues (``csrc/token_gemm.cu``)."""
     return library("token_gemm")
+
+
+def hat_attn_library() -> ctypes.CDLL:
+    """HAT's window and overlapping cross-window attentions (``csrc/hat_attn.cu``),
+    built and loaded only where a HAT model runs them."""
+    return library("hat_attn")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1522,3 +1522,148 @@ def test_swinir_m_frame_on_the_kernels_matches_plain_path(cuda_device, tmp_path)
     assert out.shape == plain.shape == (2160, 3840, 3) and out.std() > 1.0
     mse = np.mean((out.astype(np.float64) - plain) ** 2)
     assert 10 * np.log10(255.0 ** 2 / max(mse, 1e-12)) >= 40
+
+
+def _hat_case(dev, shape, heads, hd, rows, seed):
+    """A (B, H, W, 3 heads 32) qkv as the packed GEMM writes it and a
+    relative-position table of ``rows`` rows of std 1."""
+    qkv, _ = _qkv_case(dev, shape, heads, hd, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    return qkv, torch.randn(rows, heads, generator=g).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", ["sa0", "sa8", "oca"])
+@pytest.mark.parametrize("shape,heads,hd", [((1, 544, 960), 6, 30), ((2, 32, 48), 6, 30),
+                                            ((1, 16, 16), 2, 32), ((3, 48, 16), 3, 12)])
+def test_hat_attn_matches_plain_on_card(cuda_device, site, shape, heads, hd):
+    """hat_window_attn (shifts 0 and 8) and overlap_attn at the HAT cell's
+    canvas (544 x 960, 6 heads of 30) and at ragged ones (a single window,
+    one window column, B of 2 and 3, heads of 12 and 32, where the OCA's
+    key windows reach past every edge), against their plain versions (fp32
+    matmuls on the card) and those versions with float64 sums: >= 99.8% of
+    values equal to the plain version, every value within two bf16 ulps of
+    it (P is rounded to bf16 before P v; the kernel's exp2 on the SFU, an
+    ulp or two of fp32 from expf, and its tensor-core sums flip a rounding
+    now and then: 99.87% equal at the cell's OCA, whose rows sum 576 P v
+    products), >= 99.7% equal to the float64 version, the padded channels
+    zero."""
+    from innfer_tpu_torch.ops import hat_attn as HA
+    from innfer_tpu_torch.ops import window_attn as WA
+
+    oca = site == "oca"
+    qkv, table = _hat_case(cuda_device, shape, heads, hd, 1521 if oca else 961,
+                           sum(shape) + len(site))
+    fn, ref = ((HA.overlap_attn, HA.overlap_attn_reference) if oca else
+               (HA.hat_window_attn, HA.hat_window_attn_reference))
+    kw = dict(heads=heads, head_dim=hd, window=16,
+              **(dict(kwin=24) if oca else dict(shift=int(site[2:]))))
+    before = fn.launches
+    out = fn(qkv, table, **kw)
+    plain = ref(qkv, table, **kw)
+    exact = ref(qkv, table, acc=torch.float64, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches - before == 1
+    c = heads * hd
+    assert out.shape == (*shape, WA.padded(c)) and not out[..., c:].any()
+    share = lambda a, b: (a == b).float().mean().item()  # noqa: E731
+    ulp = 2 ** -7 * plain.float().abs() + 1e-3 * max(1.0, plain.float().abs().max().item())
+    gap = ((out.float() - plain.float()).abs() / ulp).max().item()
+    shares = (share(out, plain), share(out, exact), share(plain, exact))
+    assert gap <= 2 and shares[0] >= 0.998 and shares[1] >= 0.997, (gap, shares)
+
+
+def _hat_model(dev, tmp_path, seed):
+    import json
+    import os.path as osp
+
+    from innbench.reference import hat as BR
+    from innfer_tpu_torch.pipeline import InferenceSession, select_presets
+
+    root = osp.dirname(osp.dirname(osp.abspath(__file__)))
+    with open(osp.join(root, "innbench", "configs", "hat_x4.json")) as f:
+        model = json.load(f)["model"]
+    ckpt = str(tmp_path / "4x_hat_x4.pth")
+    state = BR.make_state(model, seed, dev)
+    torch.save({"params_ema": {k: v.cpu() for k, v in state.items()}}, ckpt)
+    del state
+    return InferenceSession(ckpt, arch="infer", presets=select_presets("infer", ckpt),
+                            compute_dtype=torch.bfloat16, tile=256, overlap=16,
+                            tile_mode="auto", tile_batch=8)
+
+
+@pytest.mark.gpu
+def test_hat_frame_on_the_kernels_matches_plain_path(cuda_device, tmp_path):
+    """A seeded Real-HAT-GAN x4 (published widths and depth, the benchmark's
+    weights) on a 540 x 960 frame through InferenceSession in bf16: hybrid
+    on the 544 x 960 canvas, 36 hat_window_attn, 6 overlap_attn, 126
+    token_linear and 3 tail conv launches a frame, and >= 40 dB against
+    ``ops.plain_path`` (the bar of ``chip_smoke.py``'s [hat])."""
+    from innfer_tpu_torch.ops import hat_attn as HA
+    from innfer_tpu_torch.ops import tail_conv as TCK
+    from innfer_tpu_torch.ops import token_gemm as TGK
+
+    sess = _hat_model(cuda_device, tmp_path, 29)
+    rng = np.random.default_rng(29)
+    yy, xx = np.mgrid[0:540, 0:960].astype(np.float32)
+    smooth = 128 + 70 * np.sin(xx / 23) * np.cos(yy / 31)
+    frame = np.clip(smooth[..., None] + rng.normal(0, 10, (540, 960, 3)), 0, 255).astype(np.uint8)
+    fns = (HA.hat_window_attn, HA.overlap_attn, TGK.token_linear, TCK.tail_conv)
+    with torch.no_grad():
+        before = [f.launches for f in fns]
+        out = sess.run_image(frame)
+        torch.cuda.synchronize()
+        launches = [f.launches - b for f, b in zip(fns, before)]
+        with plain_path():
+            plain = sess.run_image(frame)
+    runner = sess.stages[0].runner
+    plan = runner.plan_for(540, 960, True)
+    assert runner.last_mode == "hybrid" and (plan.pad_h, plan.pad_w) == (544, 960)
+    assert launches == [36, 6, 126, 3]
+    assert out.shape == plain.shape == (2160, 3840, 3) and out.std() > 1.0
+    mse = np.mean((out.astype(np.float64) - plain) ** 2)
+    assert 10 * np.log10(255.0 ** 2 / max(mse, 1e-12)) >= 40
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [0, 4])
+def test_swin_layer_is_its_pieces_on_card(cuda_device, shift):
+    """``models/swinir.swin_layer``, whose pieces HAT now shares (LayerNorm
+    into 16-byte rows, qkv in the attention's layout, the token GEMM with
+    its epilogues), gives bit for bit what the composition it was before
+    gives on the kernels: SwinIR's outputs are unchanged."""
+    from innfer_tpu_torch.models import swinir as SW
+    from innfer_tpu_torch.models.base import ParamDict
+    from innfer_tpu_torch.ops import layer_norm as LNK
+    from innfer_tpu_torch.ops import token_gemm as TGK
+    from innfer_tpu_torch.ops import window_attn as WA
+
+    ref = _swinir_published()
+    p = "layers.0.residual_group.blocks.1"
+    params = ParamDict({k: (v.to(cuda_device, torch.bfloat16) if v.dim() > 1
+                            and "relative_position_bias_table" not in k
+                            else v.float().to(cuda_device))
+                        for k, v in ref.state_dict().items() if k.startswith(p)})
+    g = torch.Generator().manual_seed(31 + shift)
+    x = (torch.randn(1, 64, 96, 180, generator=g) * 1.5).to(cuda_device, torch.bfloat16)
+    got = SW.swin_layer(params, x, p, heads=6, window=8, shift=shift)
+
+    def lin(key, t, pack=None, **kw):
+        w, b = params[f"{key}.weight"], params[f"{key}.bias"].to(torch.bfloat16)
+        if pack is not None:
+            w, b = pack(w, b)[0], b
+        return TGK.token_linear(t, w, b, **kw) if kw else F.linear(t, w, b)
+
+    def ln(key, t):
+        return LNK.fused_layer_norm(t, params[f"{key}.weight"], params[f"{key}.bias"],
+                                    out_width=184)
+
+    w, b = WA.pack_qkv(params[f"{p}.attn.qkv.weight"], params[f"{p}.attn.qkv.bias"], 6, 184)
+    qkv = F.linear(ln(f"{p}.norm1", x), w, b.to(torch.bfloat16))
+    bias = WA.gather_bias(params[f"{p}.attn.relative_position_bias_table"], 8)
+    a = WA.window_attn(qkv, bias, heads=6, head_dim=30, window=8, shift=shift)
+    pad = lambda w, b: (torch.nn.functional.pad(w, (0, 4)).contiguous(), b)  # noqa: E731
+    want = lin(f"{p}.attn.proj", a, pad, epilogue="residual", residual=x)
+    h = lin(f"{p}.mlp.fc1", ln(f"{p}.norm2", want), pad, epilogue="gelu")
+    want = lin(f"{p}.mlp.fc2", h, epilogue="residual", residual=want)
+    assert torch.equal(got, want)

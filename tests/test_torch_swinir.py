@@ -445,14 +445,15 @@ def test_swin_linears_counted_and_gated_on_the_cpu(monkeypatch, embed, forced, f
 
 
 _GATED = ("rdb", "resnet_block", "tail_conv", "dilated_block", "instance_norm", "window_attn",
-          "layer_norm", "token_gemm")
+          "layer_norm", "token_gemm", "hat_attn")
 
 
 @pytest.mark.parametrize("name", _GATED)
 def test_plain_path_closes_all_eight_gates(name):
-    """``ops.plain_path`` closes every kernel's gate, the token GEMM's
-    among them: each of the eight ``fusable`` answers False inside and is
-    itself again after; the eight are every ops module with a gate."""
+    """``ops.plain_path`` closes every kernel's gate, the token GEMM's and
+    HAT's attention's among them: each of the nine ``fusable`` answers
+    False inside and is itself again after; the nine are every ops module
+    with a gate."""
     import importlib
     import pkgutil
 
